@@ -4,12 +4,13 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 The first run builds the CUDA kernels into ``build/kernels/``.
 
-Workload: ``bench.py``'s tracking workload — TUM1's camera at 640x480, a
-2^18-slot map holding 250,000 random splats made from
-``np.random.default_rng(0)``, the production tracking raster view (tile 16,
-tracking capacity 512, render capacity 2048, chunk 256, max_dup 16,
-dilate 2 px, fast stop) and ``TrackingConfig(num_iters=200,
-early_stop_delta=0)`` with rebins at (8, 40, 120).
+Workload: ``bench.py``'s tracking and mapping workloads — TUM1's camera at
+640x480, a 2^18-slot map holding 250,000 random splats made from
+``np.random.default_rng(0)``, the production raster views (tile 16,
+tracking capacity 512, render and mapping capacity 2048, chunk 256,
+max_dup 16, dilate 2 px, fast stop), ``TrackingConfig(num_iters=200,
+early_stop_delta=0)`` with rebins at (8, 40, 120), and ``MappingConfig()``
+(100 mapping iterations).
 
 Phases (any failed check makes the exit code non-zero):
 1. the card's name and power limit; the kernel build;
@@ -27,7 +28,22 @@ Phases (any failed check makes the exit code non-zero):
 6. timings: ms per tracking iteration over 10 more frames (best and
    quartiles; each frame must reproduce the main path's pose bit for bit),
    a profiled frame, and each kernel's time by CUDA events beside its plain
-   version's and its bound (the work this run's data needs).
+   version's and its bound (the work this run's data needs);
+7. K4 / K5 (the flat-chunk mapping blend and its backward) against their
+   plain versions on the render bins laid out by ``chunk_layout`` with the
+   System's chunk budget: K4's rows under both stop rules, K5's ten
+   gradient rows under a seeded random cotangent, and the parameter
+   gradients through the pack and ``preprocess``;
+8. the mapping step: a window of 4 frames (gt = K3 renders of the map at the
+   identity pose and 3 poses 2 cm / 2 degrees away) against a perturbed map;
+   at the identity frame ``prune_map``, a K3 render, ``densify_frame`` and
+   a rebin, then ``map_window`` (100 iterations through K4 / K5) and
+   ``prefix_writeback``. K3 = 1 and K4 = K5 = 100 launches; finite
+   outputs; the last 10 losses below the first 10; the window's mean PSNR
+   up by at least 1 dB; a second run bitwise equal;
+9. timings: ms per mapping iteration over 5 more calls (each bitwise equal
+   to the main path's map), a profiled call, and K4 / K5 by CUDA events
+   beside their plain versions and bounds.
 It prints a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -53,7 +69,9 @@ PEAK_F32_FLOPS = 67e12
 # stop test 1 -> 15. Every applied pair, tracking backward: T rebuild 2,
 # weight 1, phi 7, d_alpha 3, suffix 3, d_power 2, ten gradient terms 25,
 # their pixel sums 10 -> 53; the backward also evaluates the falloff again
-# (16) for every pair up to the pixel's last applied instance. Per instance
+# (16) for every pair up to the pixel's last applied instance; the mapping
+# backward (K5) spends the same 53 per applied pair (its phi adds the alpha
+# cotangent, which its pixel sums do not carry). Per instance
 # of the projection: ~160 (K2f) and, for a reverse-mode adjoint, ~3x that
 # (K2b, only for instances whose cotangent is not zero).
 EVAL_OPS_PER_PAIR = 16
@@ -66,6 +84,9 @@ PROJ_ADJ_OPS_PER_INSTANCE = 480
 POSE_RAW_ROWS = 10
 POSE_SCREEN_ROWS = (0, 1, 2, 3, 4, 9)
 FRAMES = 10
+MAP_CALLS = 5
+MAP_ITERS = None  # None: MappingConfig's default (100)
+N_WINDOW = 4  # mapping window: the identity frame and 3 poses 2 cm / 2 deg away
 
 CAM_KW = dict(fx=517.3, fy=516.5, cx=318.6, cy=255.3, width=640, height=480)
 N_SPLATS = 250_000
@@ -130,6 +151,278 @@ def close_err(a, b, atol: float, rtol: float) -> float:
     return float(((a - b).abs() / (atol + rtol * b.abs())).max())
 
 
+def psnr(img, ref) -> float:
+    mse = float(((img - ref) ** 2).mean())
+    return 10.0 * math.log10(1.0 / max(mse, 1e-20))
+
+
+def axis_angle_pose(torch, axis, deg: float, trans, dev):
+    """T_cw for a rotation of ``deg`` degrees about ``axis`` and a translation."""
+    from gsorb_slam_tpu_torch.core.transforms import pose_to_matrix
+
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    h = math.radians(deg) / 2.0
+    q = torch.tensor([math.cos(h), *(math.sin(h) * a)], dtype=torch.float32, device=dev)
+    return pose_to_matrix(q, torch.tensor(trans, dtype=torch.float32, device=dev))
+
+
+def phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg) -> dict:
+    """Phase 7: K4 / K5 against their plain versions on the render bins."""
+    from gsorb_slam_tpu_torch.raster.binning import chunk_layout, tile_grid_shape
+    from gsorb_slam_tpu_torch.raster.flat_kernels import (
+        blend_flat,
+        blend_flat_backward,
+        blend_flat_backward_plain,
+        blend_flat_forward,
+        blend_flat_forward_plain,
+        cotangent_without_gate_edges,
+        flat_pack_grad_aux,
+        pack_instances_flat,
+    )
+    from gsorb_slam_tpu_torch.raster.preprocess import preprocess
+    from gsorb_slam_tpu_torch.slam.mapping import window_chunk_budget
+
+    ty, tx = tile_grid_shape(cam, rcfg)
+    budget = window_chunk_budget(bins_r.counts[None], rcfg.chunk)
+    cb = chunk_layout(bins_r, ty * tx, rcfg.chunk, budget)
+    with torch.no_grad():
+        packed = pack_instances_flat(prep, cb)
+    print(f"# flat layout: {int(cb.n_chunks)} live chunks of {rcfg.chunk}, budget {budget}",
+          flush=True)
+    res = {}
+    with torch.no_grad():
+        for exact in (False, True):
+            cfg = dataclasses.replace(rcfg, exact_stop=exact)
+            out_k, ct_k, last_k = blend_flat_forward(packed, cb, cam, cfg)
+            out_p, ct_p, last_p = blend_flat_forward_plain(packed, cb, cam, cfg)
+            torch.cuda.synchronize()
+            worst = 0.0
+            for name, rows, tol in (("color", slice(0, 3), 2e-3), ("depth", slice(3, 4), 5e-3),
+                                    ("alpha", slice(4, 5), 2e-3), ("median", slice(5, 6), 5e-3),
+                                    ("final_t", slice(6, 7), 2e-3)):
+                err = float((out_k[:, rows] - out_p[:, rows]).abs().max())
+                checks.record(f"K4 exact={int(exact)} {name} max-abs vs plain", err, tol)
+                worst = max(worst, err)
+            err = float((ct_k - ct_p).abs().max())
+            checks.record(f"K4 exact={int(exact)} chunk_t max-abs vs plain", err, 2e-3)
+            n_last = int((last_k != last_p).sum())
+            # The last applied slot moves only where a pixel's T sits at the
+            # 1e-4 stop within rounding.
+            checks.record(f"K4 exact={int(exact)} last-applied slots differing (share)",
+                          n_last / last_k.numel(), 1e-4)
+            if not exact:
+                res["k4_err"] = max(worst, err)
+                fwd = (out_k, ct_k, last_k)
+
+    # K5 under a seeded random cotangent of every differentiable row, with
+    # the pixels where the blend is discontinuous within rounding left out.
+    gen = torch.Generator().manual_seed(7)
+    g = torch.randn(fwd[0].shape, generator=gen).to(fwd[0].device)
+    g[:, 5] = 0.0
+    g[:, 7] = 0.0
+    g, n_edge = cotangent_without_gate_edges(packed, cb, g, cam, rcfg)
+    print(f"# K5 check: {n_edge} of {g.shape[0] * g.shape[2]} pixels left out (an alpha "
+          f"within rounding of the 1/255 gate or the 0.99 clamp)", flush=True)
+    d_k = blend_flat_backward(packed, cb, *fwd, g, cam, rcfg)
+    d_p = blend_flat_backward_plain(packed, cb, g, cam, rcfg, tile_batch=300)
+    torch.cuda.synchronize()
+    ratio = (d_k - d_p).abs() / (8e-4 + 2e-3 * d_p.abs())
+    if not checks.record("K5 grads max |k-p|/(8e-4+2e-3|p|)", float(ratio.max()), 1.0):
+        c_i, r_i, k_i = np.unravel_index(int(ratio.argmax()), tuple(ratio.shape))
+        print(f"#   worst: chunk {c_i} row {r_i} slot {k_i} kernel {float(d_k[c_i, r_i, k_i]):.6e} "
+              f"plain {float(d_p[c_i, r_i, k_i]):.6e}; {int((ratio > 1).sum())} elements out",
+              flush=True)
+    res["k5_err"] = float((d_k - d_p).abs().max())
+
+    # Parameter gradients: K4 / K5 with the sorted pack backward against the
+    # plain blend with autograd's scatter.
+    aux = flat_pack_grad_aux(cb.indices, gm.capacity)
+    names = ("means", "rgb", "quats", "logit_opacities", "log_scales")
+
+    def param_grads(use_kernels: bool):
+        ps = [getattr(gm, n).detach().clone().requires_grad_(True) for n in names]
+        with torch.enable_grad():
+            pr = preprocess(*ps, gm.active, torch.eye(4, device=g.device), cam)
+            if use_kernels:
+                out = blend_flat(pack_instances_flat(pr, cb, aux), cb, cam, rcfg)
+                return torch.autograd.grad((out * g).sum(), ps)
+            pk = pack_instances_flat(pr, cb)
+            d = blend_flat_backward_plain(pk.detach(), cb, g, cam, rcfg, tile_batch=300)
+            return torch.autograd.grad(pk, ps, d)
+
+    for n, a, b in zip(names, param_grads(True), param_grads(False)):
+        checks.record(f"param grad ({n}) rel-err, K4/K5 vs plain", rel_err(a, b), 2e-2)
+    res.update(cb=cb, g=g)
+    return res
+
+
+def phase_mapping(torch, checks, gm, cam, rcfg, dev) -> dict:
+    """Phases 8 and 9: the mapping step through K3 / K4 / K5 and its timings."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.core.config import MappingConfig
+    from gsorb_slam_tpu_torch.raster import bin_gaussians, preprocess, render, render_binned
+    from gsorb_slam_tpu_torch.slam.mapping import (
+        build_window_frames,
+        densify_frame,
+        map_window,
+        prune_map,
+        window_chunk_budget,
+        window_layouts,
+    )
+    from gsorb_slam_tpu_torch.splat.gaussians import prefix_view, prefix_writeback
+
+    mcfg = MappingConfig()
+    n_iters = MAP_ITERS or mcfg.num_iters
+    s2 = 0.02 / math.sqrt(2.0)
+    poses = [torch.eye(4, device=dev),
+             axis_angle_pose(torch, (0, 1, 0), 2.0, (0.02, 0.0, 0.0), dev),
+             axis_angle_pose(torch, (1, 0, 0), 2.0, (0.0, 0.02, 0.0), dev),
+             axis_angle_pose(torch, (1, 1, 0), 2.0, (-s2, 0.0, s2), dev)][:N_WINDOW]
+
+    def params(m):
+        return (m.means, m.rgb, m.quats, m.logit_opacities, m.log_scales, m.active)
+
+    with torch.no_grad():
+        gts = []
+        for P in poses:
+            o = render(*params(gm), P, cam, rcfg)
+            gts.append((o.color, torch.where(o.alpha > 0.5, o.median_depth,
+                                             torch.zeros_like(o.alpha))))
+        rng = np.random.default_rng(1)
+        C = gm.capacity
+        # The running max depth and scene radius a System takes from its
+        # first frame (seed_from_frame); the bench map leaves them unset.
+        max_z = gm.means[:, 2].max()
+        gm_p = dataclasses.replace(
+            gm,
+            max_z=max_z,
+            scene_radius=max_z / mcfg.radius_depth_ratio,
+            rgb=torch.clamp(gm.rgb + torch.as_tensor(
+                rng.normal(0, 0.1, (C, 3)).astype(np.float32), device=dev), 0.0, 1.0),
+            logit_opacities=gm.logit_opacities + torch.as_tensor(
+                rng.normal(0, 0.5, C).astype(np.float32), device=dev),
+        )
+        # Keyframe bins: the perturbed map at each window pose.
+        kf_bins = [bin_gaussians(preprocess(*params(gm_p), P, cam), cam, rcfg) for P in poses[1:]]
+
+    def mapping_step(start):
+        """Prune, K3 render, densify and rebin at the identity frame."""
+        m = prune_map(start, mcfg)
+        pr = preprocess(*params(m), poses[0], cam)
+        b = bin_gaussians(pr, cam, rcfg)
+        out = render_binned(pr, b, cam, rcfg, bg=mcfg.background_color)
+        m, n_add = densify_frame(m, out, *gts[0], poses[0], cam, mcfg,
+                                 sat_tiles=b.counts >= rcfg.tile_capacity, rcfg=rcfg)
+        cur = bin_gaussians(preprocess(*params(m), poses[0], cam), cam, rcfg)
+        return m, n_add, cur
+
+    def prefix_of(m) -> int:
+        """The System's power-of-two bucket over the live prefix."""
+        b = 1 << 14
+        while b < int(m.count):
+            b *= 2
+        return min(b, m.capacity)
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        gm1, n_added, cur_bins = mapping_step(gm_p)
+        frames = build_window_frames([c for c, _ in gts], [d for _, d in gts], poses,
+                                     [cur_bins, *kf_bins], len(poses), len(poses), device=dev)
+        budget = window_chunk_budget(frames.bins_counts, rcfg.chunk)
+        prefix = prefix_of(gm1)
+        gm_v, losses = map_window(prefix_view(gm1, prefix), frames,
+                                  torch.Generator().manual_seed(0), cam, mcfg, rcfg,
+                                  num_iters=n_iters, chunk_budget=budget)
+        gm2 = prefix_writeback(gm1, gm_v)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    print(f"# mapping main path launches: {json.dumps(launches)}", flush=True)
+    for name, want in (("blend_forward", 1), ("blend_flat_fwd", n_iters),
+                       ("blend_flat_bwd", n_iters)):
+        checks.record(f"{name} launches == {want}", launches[name], want,
+                      ok=launches[name] == want)
+    print(f"# mapping step: {int(n_added)} splats added by densify (count {int(gm1.count)}), "
+          f"window of {frames.n_frames} frames, chunk budget {budget}, prefix {prefix}, "
+          f"{step_s:.3f} s (first run)", flush=True)
+    names = ("means", "rgb", "quats", "logit_opacities", "log_scales")
+    finite = bool(torch.isfinite(losses).all()) and all(
+        bool(torch.isfinite(getattr(gm2, n)).all()) for n in names)
+    checks.record("mapping outputs finite", 0.0, 0.0, ok=finite)
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    print(f"# mapping loss: first 10 iterations {first:.6f}, last 10 {last:.6f}", flush=True)
+    checks.record("mapping loss, last 10 below first 10", last - first, 0.0, ok=last < first)
+    with torch.no_grad():
+        before = [psnr(render(*params(gm1), P, cam, rcfg).color, c) for P, (c, _) in zip(poses, gts)]
+        after = [psnr(render(*params(gm2), P, cam, rcfg).color, c) for P, (c, _) in zip(poses, gts)]
+    gain = float(np.mean(after) - np.mean(before))
+    print(f"# window PSNR against the gt: before {', '.join(f'{v:.3f}' for v in before)}; "
+          f"after {', '.join(f'{v:.3f}' for v in after)} dB", flush=True)
+    checks.record("window mean PSNR gain after mapping (dB, at least)", gain, 1.0, ok=gain >= 1.0)
+
+    def run():
+        with torch.no_grad():
+            return map_window(prefix_view(gm1, prefix), frames, torch.Generator().manual_seed(0),
+                              cam, mcfg, rcfg, num_iters=n_iters, chunk_budget=budget)
+
+    def same(m) -> bool:
+        return all(torch.equal(getattr(m, n), getattr(gm_v, n)) for n in names)
+
+    m_re, l_re = run()
+    checks.record("mapping rerun bitwise equal", 0.0, 0.0, ok=same(m_re) and torch.equal(l_re, losses))
+
+    # ---- 9. timings ----
+    call_s = []
+    equal = True
+    for _ in range(MAP_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m_t, _ = run()
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+        equal &= same(m_t)
+    checks.record(f"mapped map bitwise equal in {MAP_CALLS + 2} calls", 0.0, 0.0, ok=equal)
+    q25, q50, q75 = (float(v) / n_iters * 1e3 for v in np.quantile(call_s, (0.25, 0.5, 0.75)))
+    print(f"# map_window ms/iteration over {MAP_CALLS} calls of {n_iters} iterations: median "
+          f"{q50:.4f}, quartiles {q25:.4f} / {q75:.4f}, best {min(call_s) / n_iters * 1e3:.4f}; "
+          f"calls {', '.join(f'{v:.4f}' for v in call_s)} s", flush=True)
+    profile_call(torch, run, min(call_s), "map_window call")
+
+    layout = window_layouts(frames, gm1.capacity, cam, rcfg, budget)[0]
+    return dict(gm=gm1, layout=layout, pose=poses[0], n_iters=n_iters, launches=launches)
+
+
+def profile_call(torch, fn, best_s: float, what: str) -> None:
+    """One call of ``fn`` under torch.profiler: the kernels' device time, its
+    share of the profiled call's wall time and of the best unprofiled call's
+    (the profiler slows the host, not the kernels), and the kernels that
+    take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    if busy_ms > 0:
+        print(f"# profiled {what}: {wall_ms:.3f} ms wall, {busy_ms:.3f} ms of kernels; "
+              f"device busy {busy_ms / wall_ms:.4f} of the profiled call, "
+              f"{busy_ms / (best_s * 1e3):.4f} of the best unprofiled call", flush=True)
+        for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"#   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
+                  f"{e.key[:90]}", flush=True)
+    else:
+        print(f"# profiled {what}: the profiler recorded no device time (not measured)",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -156,6 +449,13 @@ def main() -> int:
         tile_gt_images,
         tracking_loss_grad,
         tracking_loss_grad_plain,
+    )
+    from gsorb_slam_tpu_torch.raster.flat_kernels import (
+        blend_flat_backward,
+        blend_flat_backward_plain,
+        blend_flat_forward,
+        blend_flat_forward_plain,
+        pack_instances_flat,
     )
     from gsorb_slam_tpu_torch.raster.instances import (
         pack_raw_instances,
@@ -334,12 +634,8 @@ def main() -> int:
         view = render(*params, res.T_cw, cam, rcfg)  # the view at the tracked pose
         return out, res, view
 
-    def psnr(img) -> float:
-        mse = float(((img - gt_color) ** 2).mean())
-        return 10.0 * math.log10(1.0 / max(mse, 1e-20))
-
     with torch.no_grad():
-        psnr_init = psnr(render(*params, T_init, cam, rcfg).color)
+        psnr_init = psnr(render(*params, T_init, cam, rcfg).color, gt_color)
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -362,7 +658,7 @@ def main() -> int:
     checks.record("outputs finite with expected shapes", 0.0, 0.0, ok=finite and shapes)
     # The view at the tracked pose must reproduce the gt far better than the
     # view at the initial pose: at least 6 dB (a 4x lower squared error).
-    psnr_track = psnr(view.color)
+    psnr_track = psnr(view.color, gt_color)
     print(f"# view PSNR against the gt: {psnr_track:.3f} dB at the tracked pose, "
           f"{psnr_init:.3f} dB at the initial pose", flush=True)
     checks.record("view PSNR gain, tracked over initial pose (dB, at least)",
@@ -398,33 +694,15 @@ def main() -> int:
           f"rebins: best {ms_iter:.4f}, quartiles {q25:.4f} / {q50:.4f} / {q75:.4f}; frames "
           f"{', '.join(f'{s:.4f}' for s in frame_s)} s", flush=True)
 
-    # One more frame under torch.profiler: the kernels' device time per
-    # frame, its share of the profiled frame's wall time and of the best
-    # unprofiled frame's (the profiler slows the host, not the kernels),
-    # and the kernels that take the most device time.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    profile_call(torch, lambda: track_frame(gm, T_init, gt_color, gt_depth, matches, cam, tcfg,
+                                            rcfg_t, rebin_iters=REBINS),
+                 min(frame_s), "tracking frame")
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            track_frame(gm, T_init, gt_color, gt_depth, matches, cam, tcfg, rcfg_t,
-                        rebin_iters=REBINS)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    if busy_ms > 0:
-        print(f"# profiled frame: {wall_ms:.3f} ms wall, {busy_ms:.3f} ms of kernels; "
-              f"device busy {busy_ms / wall_ms:.4f} of the profiled frame, "
-              f"{busy_ms / (min(frame_s) * 1e3):.4f} of the best unprofiled frame", flush=True)
-        for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"#   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
-                  f"{e.key[:90]}", flush=True)
-    else:
-        print("# profiled frame: the profiler recorded no device time (not measured)",
-              flush=True)
+    # ---- 7. K4 / K5 against their plain versions ----
+    flat = phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg)
+
+    # ---- 8-9. the mapping step and its timings ----
+    mp = phase_mapping(torch, checks, gm, cam, rcfg, dev)
 
     with torch.no_grad():
         k1_ms = time_ms(torch, lambda: tracking_loss_grad(
@@ -438,11 +716,29 @@ def main() -> int:
         k3_ms = time_ms(torch, lambda: blend_forward(packed_r, bins_r.counts, cam, rcfg), 20)
         k3_plain_ms = time_ms(torch, lambda: blend_forward_plain(
             packed_r, bins_r.counts, cam, rcfg), 2)
+        # K4 / K5 at the mapping step's shapes: the identity window frame's
+        # layout and the map mapping starts from.
+        cb_m = mp["layout"].cbins
+        gm_m = mp["gm"]
+        packed_m = pack_instances_flat(preprocess(
+            gm_m.means, gm_m.rgb, gm_m.quats, gm_m.logit_opacities, gm_m.log_scales,
+            gm_m.active, mp["pose"], cam), cb_m)
+        fwd_m = blend_flat_forward(packed_m, cb_m, cam, rcfg)
+        g_m = torch.randn(fwd_m[0].shape, generator=torch.Generator().manual_seed(3)).to(dev)
+        k4_ms = time_ms(torch, lambda: blend_flat_forward(packed_m, cb_m, cam, rcfg), 20)
+        k4_plain_ms = time_ms(torch, lambda: blend_flat_forward_plain(packed_m, cb_m, cam, rcfg), 1)
+        k5_ms = time_ms(torch, lambda: blend_flat_backward(packed_m, cb_m, *fwd_m, g_m, cam, rcfg),
+                        20)
+        k5_plain_ms = time_ms(torch, lambda: blend_flat_backward_plain(
+            packed_m, cb_m, g_m, cam, rcfg, tile_batch=300), 1)
         # The (pixel, instance) pairs this run's data needs, from the plain
         # blends (the same per-pixel loop as the kernels).
-        pairs_k1, pairs_k3 = {}, {}
+        pairs_k1, pairs_k3, pairs_k4 = {}, {}, {}
         blend_forward_plain(screen_k, counts_t, cam, rcfg_t, pairs=pairs_k1)
         blend_forward_plain(packed_r, bins_r.counts, cam, rcfg, pairs=pairs_k3)
+        blend_flat_forward_plain(packed_m, cb_m, cam, rcfg, pairs=pairs_k4)
+        live_m = float((cb_m.indices >= 0).sum())
+        n_chunks_m = float(cb_m.n_chunks)
         nz_k2b = float((d_screen[:, list(POSE_SCREEN_ROWS)] != 0).any(1).sum())
 
     n_tiles, _, cap_t = raw.shape
@@ -468,8 +764,20 @@ def main() -> int:
     b_k3, by_k3 = bound_ms(
         live_r * 10 * 4 + n_tiles * (8 + n_chunks_r + 1) * px * 4,
         pairs_k3["evaluated"] * EVAL_OPS_PER_PAIR + pairs_k3["applied"] * BLEND_APPLY_OPS_PER_PAIR)
-    print(f"# (pixel, instance) pairs: K1 {json.dumps(pairs_k1)}, K3 {json.dumps(pairs_k3)}; "
-          f"live instances: tracking {live_t:.0f}, render {live_r:.0f}; K2b slots with a "
+    # K4 reads the 10 blend rows of the live instances and writes the rows
+    # out, the incoming T of every live chunk and the last applied slot per
+    # pixel; K5 reads the same instances, those residuals, the final-T row
+    # and six cotangent rows, and writes ten gradient rows per instance.
+    resid_m = n_chunks_m * px * 4 + n_tiles * px * 4
+    b_k4, by_k4 = bound_ms(
+        live_m * 10 * 4 + n_tiles * 8 * px * 4 + resid_m,
+        pairs_k4["evaluated"] * EVAL_OPS_PER_PAIR + pairs_k4["applied"] * BLEND_APPLY_OPS_PER_PAIR)
+    b_k5, by_k5 = bound_ms(
+        live_m * 10 * 4 + resid_m + n_tiles * 7 * px * 4 + live_m * 10 * 4,
+        pairs_k4["to_last"] * EVAL_OPS_PER_PAIR + pairs_k4["applied"] * TRACK_BWD_APPLY_OPS_PER_PAIR)
+    print(f"# (pixel, instance) pairs: K1 {json.dumps(pairs_k1)}, K3 {json.dumps(pairs_k3)}, "
+          f"K4 / K5 {json.dumps(pairs_k4)}; live instances: tracking {live_t:.0f}, render "
+          f"{live_r:.0f}, mapping {live_m:.0f} in {n_chunks_m:.0f} chunks; K2b slots with a "
           f"pose cotangent: {nz_k2b:.0f} of {slots_t}", flush=True)
 
     def entry(name, source, replaces, launches_n, err, ms, plain_ms, b, by):
@@ -490,11 +798,20 @@ def main() -> int:
         entry("K3 blend_forward", "gsorb_slam_tpu_torch/csrc/blend_forward.cu",
               "gsorb_slam_tpu/raster/pallas_raster.py:615", launches["blend_forward"],
               k3_err, k3_ms, k3_plain_ms, b_k3, by_k3),
+        entry("K4 blend_flat_fwd", "gsorb_slam_tpu_torch/csrc/blend_flat.cu",
+              "gsorb_slam_tpu/raster/pallas_raster.py:1950", mp["launches"]["blend_flat_fwd"],
+              flat["k4_err"], k4_ms, k4_plain_ms, b_k4, by_k4),
+        entry("K5 blend_flat_bwd", "gsorb_slam_tpu_torch/csrc/blend_flat.cu",
+              "gsorb_slam_tpu/raster/pallas_raster.py:2014", mp["launches"]["blend_flat_bwd"],
+              flat["k5_err"], k5_ms, k5_plain_ms, b_k5, by_k5),
     ]
     for k in kernels:
         print(f"# {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "
-              f"{k['bound_ms']:.4f} ms by {k['bound_by']}), {k['launches']} launches on the "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']}), {k['launches']} launches on its "
               f"main path", flush=True)
+    print("# library_ms: null for every kernel: no single PyTorch call computes a "
+          "depth-ordered alpha blend with its stop rules, its backward, or the EWA "
+          "projection's pose adjoint", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     if checks.failed:

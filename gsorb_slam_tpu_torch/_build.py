@@ -27,7 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("blend_forward.cu", "fused_track_fast.cu", "preprocess_instances.cu")
+SOURCES = (
+    "blend_flat.cu", "blend_forward.cu", "fused_track_fast.cu", "preprocess_instances.cu",
+)
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -40,6 +42,8 @@ launches: dict[str, int] = {
     "preprocess_fwd": 0,  # K2f
     "preprocess_bwd": 0,  # K2b
     "blend_forward": 0,  # K3
+    "blend_flat_fwd": 0,  # K4
+    "blend_flat_bwd": 0,  # K5
 }
 
 _lock = threading.Lock()
@@ -51,6 +55,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "gsorb_blend_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gsorb_blend_flat_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gsorb_blend_flat_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsorb_fused_track_fast": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _F, _F, _I, _P],
     "gsorb_preprocess_fwd": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
@@ -127,8 +133,10 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use.
 
     This is where the port starts on the card, so it also pins float32
-    matmuls and convolutions to full precision: TF32 keeps ~3 decimal
-    digits, which the pose geometry cannot afford."""
+    matmuls and convolutions to full precision (TF32 keeps ~3 decimal
+    digits, which the pose geometry cannot afford) and cuDNN to its
+    deterministic algorithms (the mapping loss's SSIM convolutions sit on
+    the differentiated path, and the mapped map must be reproducible)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -136,6 +144,7 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError("the CUDA kernels need a CUDA device")
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cudnn.deterministic = True
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

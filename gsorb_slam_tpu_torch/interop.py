@@ -1,8 +1,9 @@
 """Carrying state across from the JAX package as plain numpy arrays.
 
 The port imports nothing of ``gsorb_slam_tpu``; a caller that holds a JAX
-``GaussianMap`` or ``RasterConfig`` converts it to numpy arrays / a dict
-(``np.asarray`` on each field, ``dataclasses.asdict``) and hands them here.
+``GaussianMap``, ``WindowFrames`` or ``RasterConfig`` converts it to numpy
+arrays / a dict (``np.asarray`` on each field, ``dataclasses.asdict`` or
+``_asdict``) and hands them here.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from gsorb_slam_tpu_torch.raster.types import RasterConfig
+from gsorb_slam_tpu_torch.slam.mapping import WindowFrames
 from gsorb_slam_tpu_torch.splat.gaussians import PARAM_NAMES, GaussianMap
 
 
@@ -67,3 +69,23 @@ def raster_config_from_dict(d: Mapping[str, Any]) -> RasterConfig:
     if unknown:
         raise ValueError(f"unknown RasterConfig fields: {sorted(unknown)}")
     return RasterConfig(**dict(d))
+
+
+def window_frames_from_numpy(
+    d: Mapping[str, Any], device: torch.device | str = "cuda"
+) -> WindowFrames:
+    """The port's ``WindowFrames`` from the JAX one's fields as numpy arrays:
+    ``colors``, ``depths``, ``poses``, ``bins_indices``, ``bins_counts`` and
+    ``n_frames``."""
+
+    def t(x, dtype):
+        return torch.as_tensor(np.array(x, dtype), device=device)
+
+    return WindowFrames(
+        colors=t(d["colors"], np.float32),
+        depths=t(d["depths"], np.float32),
+        poses=t(d["poses"], np.float32),
+        bins_indices=t(d["bins_indices"], np.int32),
+        bins_counts=t(d["bins_counts"], np.int32),
+        n_frames=int(d["n_frames"]),
+    )

@@ -14,7 +14,8 @@ Same algorithm as the CUDA pipeline's ``InclusiveSum -> duplicateWithKeys
    fixed-capacity per-tile index lists.
 
 The order equals the JAX package's stable ``lax.sort`` index for index:
-two stable passes, depth first, then tile.
+two stable passes, depth first, then tile. :func:`chunk_layout` enumerates
+the live chunks of the bins for the mapping path's flat-chunk blend.
 """
 
 from __future__ import annotations
@@ -33,6 +34,59 @@ class TileBins:
     indices: torch.Tensor  # [T, cap] int32 gaussian ids, -1 padded
     counts: torch.Tensor  # [T] int32 live entries per tile
     n_dropped: torch.Tensor  # [] int32 instances lost to capacity overflow
+
+
+@dataclasses.dataclass
+class ChunkBins:
+    """Flat-chunk view of :class:`TileBins` for the mapping path: only the
+    ceil(count/K) live chunks of each tile, concatenated across tiles in
+    tile order. Dead tail chunks carry tile id ``n_tiles`` and index -1.
+
+    The first four fields equal the JAX package's ``ChunkBins`` index for
+    index; ``tile_start`` (the first flat chunk of each tile, ``[T + 1]``)
+    is the port's own: the flat blend kernels run one block per tile over
+    the chunk range ``[tile_start[t], tile_start[t + 1])``."""
+
+    indices: torch.Tensor  # [MC, K] int32 gaussian ids (-1 dead)
+    chunk_tile: torch.Tensor  # [MC] int32 owning tile (n_tiles = dead)
+    chunk_pos: torch.Tensor  # [MC] int32 chunk position within its tile
+    n_chunks: torch.Tensor  # [] int32 live chunk count
+    tile_start: torch.Tensor  # [T + 1] int32 first flat chunk of each tile
+
+
+def chunk_layout(bins: TileBins, n_tiles: int, chunk: int, chunk_budget: int) -> ChunkBins:
+    """The flat-chunk enumeration of per-tile bins (counterpart of the JAX
+    ``chunk_layout``), built once per binning episode.
+
+    The JAX version silently drops the tail tiles when ``chunk_budget`` is
+    below the live chunk count; this one raises instead."""
+    K = chunk
+    dev = bins.indices.device
+    cap = bins.indices.shape[1]
+    nchunks = torch.div(bins.counts.long() + K - 1, K, rounding_mode="floor")  # [T]
+    cstart = torch.cat([nchunks.new_zeros(1), torch.cumsum(nchunks, 0)])  # [T + 1]
+    total = int(cstart[-1])
+    if total > chunk_budget:
+        raise ValueError(f"{total} live chunks exceed the chunk budget {chunk_budget}")
+    cid = torch.arange(chunk_budget, device=dev)
+    tile_of = torch.searchsorted(cstart, cid, right=True) - 1
+    live = cid < total
+    tile_of = torch.where(live, tile_of, torch.full_like(tile_of, n_tiles))
+    t_clip = torch.clamp(tile_of, max=n_tiles - 1)
+    pos = torch.where(live, cid - cstart[t_clip], torch.zeros_like(cid))
+    flat = bins.indices.reshape(-1)
+    src = (t_clip * cap + pos * K)[:, None] + torch.arange(K, device=dev)[None, :]
+    idx = torch.where(
+        live[:, None], flat[torch.clamp(src, max=n_tiles * cap - 1)], torch.full_like(src, -1)
+    )
+    i32 = torch.int32
+    return ChunkBins(
+        indices=idx.to(i32),
+        chunk_tile=tile_of.to(i32),
+        chunk_pos=pos.to(i32),
+        n_chunks=cstart[-1].to(i32),
+        tile_start=cstart.to(i32),
+    )
 
 
 def tile_grid_shape(cam: Camera, cfg: RasterConfig) -> tuple[int, int]:

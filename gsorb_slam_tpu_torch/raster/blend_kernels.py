@@ -42,14 +42,10 @@ N_GRAD = 10  # d_mu, d_mv, d_ca, d_cb, d_cc, d_op, d_r, d_g, d_b, d_z
 MAX_TILE_PX = 256  # threads per block of the blend kernels: one per pixel
 
 
-def pack_instances(prep: Preprocessed, bins: TileBins) -> torch.Tensor:
-    """Gather per-tile instance attributes into ``[T, 16, cap]``.
-
-    Padding entries (``bins.indices == -1`` or past the tile's count) read a
-    zero sentinel row, so dead slots blend with opacity 0. Conic rows are
-    masked by validity: invalid conics can be garbage (det <= 0)."""
-    T, cap = bins.indices.shape
-    C = prep.depth.shape[0]
+def attr_cols(prep: Preprocessed) -> torch.Tensor:
+    """The packed attribute table ``[C + 1, 16]`` with a zero sentinel row
+    (row C), which padding slots read. Conic rows are masked by validity:
+    invalid conics can be garbage (det <= 0)."""
     vf = prep.valid.to(torch.float32)
     z = torch.zeros_like(prep.opacity)
     cols = torch.stack(
@@ -69,7 +65,18 @@ def pack_instances(prep: Preprocessed, bins: TileBins) -> torch.Tensor:
         ],
         dim=1,
     )  # [C, 16]
-    cols = torch.cat([cols, cols.new_zeros((1, N_ATTR))], dim=0)
+    return torch.cat([cols, cols.new_zeros((1, N_ATTR))], dim=0)
+
+
+def pack_instances(prep: Preprocessed, bins: TileBins) -> torch.Tensor:
+    """Gather per-tile instance attributes into ``[T, 16, cap]``.
+
+    Padding entries (``bins.indices == -1`` or past the tile's count) read
+    the zero sentinel row of :func:`attr_cols`, so dead slots blend with
+    opacity 0."""
+    T, cap = bins.indices.shape
+    C = prep.depth.shape[0]
+    cols = attr_cols(prep)
     k = torch.arange(cap, device=bins.indices.device)
     dead = (bins.indices < 0) | (k[None, :] >= bins.counts[:, None])
     idx = torch.where(dead, torch.full_like(bins.indices, C), bins.indices)
@@ -100,12 +107,15 @@ def blend_tiles(
     exact: bool,
     crossing_median: bool,
     pairs: dict[str, int] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    with_last: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """The plain per-tile front-to-back blend, chunk by chunk.
 
     Returns ``out [T, 8, px]`` = (r, g, b, depth, alpha, median depth,
     final T, 0) and ``chunk_t [T, n_chunks + 1, px]`` (the incoming T of
-    each chunk, 0 once the pixel is done; the last row is the final T).
+    each chunk, 0 once the pixel is done; the last row is the final T);
+    with ``with_last`` also ``last [T, px]`` int32, the slot of each pixel's
+    last applied instance (-1 for none).
     ``crossing_median`` takes the median depth at the T=0.5 crossing (the
     tracking kernel's rule); otherwise the last applied instance with
     incoming T > 0.5 (the render kernel's). Differentiable w.r.t.
@@ -155,6 +165,7 @@ def blend_tiles(
             visited = visited & live[:, None, :] & ~done0[..., None]
             n_eval += int(visited.sum())
             n_apply += int(apply.sum())
+        if pairs is not None or with_last:
             idx = torch.where(apply, c * K + kk + 1, torch.zeros_like(kk)).amax(dim=-1)
             n_last = torch.maximum(n_last, idx)
         w = torch.where(apply, alpha * T_pref, torch.zeros_like(alpha))
@@ -177,6 +188,8 @@ def blend_tiles(
         pairs.update(evaluated=n_eval, applied=n_apply, to_last=int(n_last.sum()))
     zero = torch.zeros_like(T)
     out = torch.cat([acc, torch.stack([Med, T, zero], dim=1)], dim=1)
+    if with_last:
+        return out, torch.stack(chunk_t, dim=1), (n_last - 1).to(torch.int32)
     return out, torch.stack(chunk_t, dim=1)
 
 

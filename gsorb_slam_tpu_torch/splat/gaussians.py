@@ -5,7 +5,9 @@ The map lives in tensors of static capacity ``C`` with an ``active`` mask:
 densify scatters new rows into dead slots (``add_points``), so the row
 indices that tile bins hold stay valid. Adam moments live beside the
 parameters; new rows start with zero moments and inherit the global step,
-as after a concat in the reference (``src/Gaussian.cc:241-258``).
+as after a concat in the reference (``src/Gaussian.cc:241-258``). Prune
+clears mask bits; ``compact`` moves live rows to the front. Every function
+returns a new map and leaves its input's tensors as they were.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import dataclasses
 
 import torch
 
-from gsorb_slam_tpu_torch.core.config import TrackingConfig
+from gsorb_slam_tpu_torch.core.config import MappingConfig, TrackingConfig
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -172,6 +174,101 @@ def prefix_view(gm: GaussianMap, n: int) -> GaussianMap:
         adam_m={k: v[:n] for k, v in gm.adam_m.items()},
         adam_v={k: v[:n] for k, v in gm.adam_v.items()},
     )
+
+
+def prefix_writeback(gm_full: GaussianMap, gm_part: GaussianMap) -> GaussianMap:
+    """Write an updated prefix view back into a copy of the full map; the
+    scalars (count, Adam step, scene radius, max z) come from the part."""
+    n = gm_part.means.shape[0]
+
+    def wb(full: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+        out = full.clone()
+        out[:n] = part
+        return out
+
+    return dataclasses.replace(
+        gm_full,
+        **{k: wb(getattr(gm_full, k), getattr(gm_part, k)) for k in PARAM_NAMES},
+        active=wb(gm_full.active, gm_part.active),
+        adam_m={k: wb(gm_full.adam_m[k], gm_part.adam_m[k]) for k in gm_full.adam_m},
+        adam_v={k: wb(gm_full.adam_v[k], gm_part.adam_v[k]) for k in gm_full.adam_v},
+        count=gm_part.count,
+        adam_t=gm_part.adam_t,
+        scene_radius=gm_part.scene_radius,
+        max_z=gm_part.max_z,
+    )
+
+
+def prune_low_opacity(gm: GaussianMap, threshold: float = 0.005) -> GaussianMap:
+    """Deactivate splats with sigmoid(opacity) < threshold
+    (``RemoveLowOpcitiesGaussian``, ``src/Gaussian.cc:180-185``). Rows stay
+    allocated until the next :func:`compact`."""
+    low = torch.sigmoid(gm.logit_opacities) < threshold
+    return dataclasses.replace(gm, active=gm.active & ~low)
+
+
+def prune_to_budget(gm: GaussianMap, target_frac: float = 0.85) -> GaussianMap:
+    """Capacity pressure valve: when the live count exceeds
+    ``target_frac * capacity``, deactivate the lowest-opacity live splats
+    down to the target (mask only; freed rows are recycled by
+    :func:`add_points`). Ties at the threshold survive."""
+    target = int(target_frac * gm.capacity)
+    n_cut = torch.clamp(gm.n_active() - target, min=0)
+    key = torch.where(gm.active, gm.logit_opacities, torch.full_like(gm.logit_opacities, float("inf")))
+    order = torch.sort(key).values
+    thresh = order[torch.clamp(n_cut, 0, gm.capacity - 1).long()]
+    cut = gm.active & (gm.logit_opacities < thresh)
+    return dataclasses.replace(gm, active=gm.active & ~cut)
+
+
+def compact(gm: GaussianMap) -> GaussianMap:
+    """Episodic defragmentation: stable-partition live rows to the front so
+    the write cursor regains pruned slots (the reference's
+    ``PruneOptimizer`` index-select, ``src/Gaussian.cc:223-239``)."""
+    order = torch.sort((~gm.active).to(torch.int8), stable=True).indices
+    return dataclasses.replace(
+        gm,
+        **{k: getattr(gm, k)[order] for k in PARAM_NAMES},
+        active=gm.active[order],
+        count=gm.n_active(),
+        adam_m={k: v[order] for k, v in gm.adam_m.items()},
+        adam_v={k: v[order] for k, v in gm.adam_v.items()},
+    )
+
+
+def map_learning_rates(cfg: MappingConfig) -> dict[str, float]:
+    return {
+        "means": cfg.lr_mean3d,
+        "rgb": cfg.lr_rgb,
+        "quats": cfg.lr_unnorm_rotation,
+        "logit_opacities": cfg.lr_logit_opacities,
+        "log_scales": cfg.lr_log_scales,
+    }
+
+
+def adam_step(
+    gm: GaussianMap, grads: dict[str, torch.Tensor], lrs: dict[str, float]
+) -> GaussianMap:
+    """One masked Adam step over the five splat parameter groups
+    (``StepUpdataForGaussian``, ``src/Gaussian.cc:136-141``, with the
+    optimizer of ``CreateOptimizerForGaussian``, ``:158-182``, eps 1e-15).
+    Inactive rows are frozen and keep zero moments. Returns a new map."""
+    t = gm.adam_t + 1
+    tf = t.to(torch.float32)
+    c1 = 1.0 - ADAM_B1**tf
+    c2 = 1.0 - ADAM_B2**tf
+    new_p, new_m, new_v = {}, {}, {}
+    for k in PARAM_NAMES:
+        p = getattr(gm, k)
+        mask = gm.active.to(p.dtype).reshape((-1,) + (1,) * (p.ndim - 1))
+        g = grads[k] * mask
+        m = ADAM_B1 * gm.adam_m[k] + (1 - ADAM_B1) * g
+        v = ADAM_B2 * gm.adam_v[k] + (1 - ADAM_B2) * g * g
+        update = (m / c1) / (torch.sqrt(v / c2) + ADAM_EPS)
+        new_p[k] = p - lrs[k] * update * mask
+        new_m[k] = m * mask
+        new_v[k] = v * mask
+    return dataclasses.replace(gm, **new_p, adam_m=new_m, adam_v=new_v, adam_t=t)
 
 
 # ---------------------------------------------------------------------------

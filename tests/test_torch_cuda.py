@@ -17,6 +17,7 @@ from gsorb_slam_tpu_torch import _build
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.core.transforms import pose_to_matrix
 from gsorb_slam_tpu_torch.raster import RasterConfig, bin_gaussians, preprocess
+from gsorb_slam_tpu_torch.raster.binning import chunk_layout, tile_grid_shape
 from gsorb_slam_tpu_torch.raster.blend_kernels import (
     blend_forward,
     blend_forward_plain,
@@ -24,6 +25,17 @@ from gsorb_slam_tpu_torch.raster.blend_kernels import (
     pack_instances,
     tracking_loss_grad,
     tracking_loss_grad_plain,
+)
+from gsorb_slam_tpu_torch.raster.blend_kernels import render_output_from_tiles
+from gsorb_slam_tpu_torch.raster.flat_kernels import (
+    blend_flat_backward,
+    blend_flat_backward_plain,
+    blend_flat_forward,
+    blend_flat_forward_plain,
+    cotangent_without_gate_edges,
+    flat_pack_grad_aux,
+    pack_instances_flat,
+    render_flat,
 )
 from gsorb_slam_tpu_torch.raster.instances import pack_raw_instances, rt_from_matrix, screen_rows
 from gsorb_slam_tpu_torch.raster.preprocess_kernel import (
@@ -103,3 +115,39 @@ def test_k2_and_k1_match_plain(dev):
     d_rt_k = preprocess_bwd(raw, rt, g_k, CAM)
     d_rt_p = preprocess_bwd_plain(raw, rt, g_k, CAM)
     assert float((d_rt_k - d_rt_p).abs().max() / d_rt_p.abs().max()) < 1e-3
+
+
+def test_k5_exact_stop_with_background(dev):
+    """K4 / K5 with the exact stop rule and a non-zero background (chip_smoke
+    checks the fast rule with no background): K5 against its plain version,
+    and parameter gradients through the sorted pack backward against the
+    plain blend with autograd's scatter."""
+    params = _scene(dev)
+    cfg = dataclasses.replace(CFG, exact_stop=True)
+    ty, tx = tile_grid_shape(CAM, cfg)
+    means = params[0].clone().requires_grad_(True)
+    prep = preprocess(means, *params[1:], torch.eye(4, device=dev), CAM)
+    bins = bin_gaussians(prep.detach(), CAM, cfg)
+    cbins = chunk_layout(bins, ty * tx, cfg.chunk, 512)
+    packed = pack_instances_flat(prep.detach(), cbins)
+    out, chunk_t, last = blend_flat_forward(packed, cbins, CAM, cfg)
+    out_p, chunk_t_p, last_p = blend_flat_forward_plain(packed, cbins, CAM, cfg)
+    torch.testing.assert_close(out, out_p, atol=2e-3, rtol=0)
+    torch.testing.assert_close(chunk_t, chunk_t_p, atol=2e-3, rtol=0)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0)).to(dev)
+    g[:, 5] = g[:, 7] = 0.0
+    g, _ = cotangent_without_gate_edges(packed, cbins, g, CAM, cfg)
+    n0 = _build.launches["blend_flat_bwd"]
+    d_k = blend_flat_backward(packed, cbins, out, chunk_t, last, g, CAM, cfg)
+    assert _build.launches["blend_flat_bwd"] == n0 + 1
+    d_p = blend_flat_backward_plain(packed, cbins, g, CAM, cfg)
+    torch.testing.assert_close(d_k, d_p, atol=8e-4, rtol=2e-3)
+
+    bg, w = 0.3, torch.rand((CAM.height, CAM.width, 3), device=dev)
+    aux = flat_pack_grad_aux(cbins.indices, means.shape[0])
+    (g_k,) = torch.autograd.grad((render_flat(prep, cbins, CAM, cfg, bg, aux).color * w).sum(),
+                                 means, retain_graph=True)
+    out_p, _, _ = blend_flat_forward_plain(pack_instances_flat(prep, cbins), cbins, CAM, cfg)
+    color_p = render_output_from_tiles(out_p, CAM, cfg, bg, prep.radius).color
+    (g_p,) = torch.autograd.grad((color_p * w).sum(), means)
+    assert float((g_k - g_p).abs().max() / g_p.abs().max()) < 2e-2
