@@ -43,7 +43,26 @@ Phases (any failed check makes the exit code non-zero):
    up by at least 1 dB; a second run bitwise equal;
 9. timings: ms per mapping iteration over 5 more calls (each bitwise equal
    to the main path's map), a profiled call, and K4 / K5 by CUDA events
-   beside their plain versions and bounds.
+   beside their plain versions and bounds;
+10. K7 (the exact-stop fused tracking iteration) against its plain version on
+    phase 4's tracking pack: loss, per-instance gradients with the loss-edge
+    pixels left out, and the pose gradient through K2b;
+11. K8 (the paired-rect fused tracking iteration) against its plain version
+    (K1's over the rect tiles, un-paired) on the System's paired tracking view
+    (16x8 tiles, capacity 512, chunk 256) binned at phase 4's pose with the
+    count-sorted pairing: the same checks;
+12. the RGB-D System: ``track_rgbd`` over the first 10 frames of a TUM-like
+    sequence generated on the card (VGA, TUM1's intrinsics, no distortion,
+    Kinect noise; 100 frames long, so each frame moves as far as a TUM fr1
+    frame), TUM1's configuration (a dict: no PyYAML) and
+    ``System.default_raster_config(640)``, then ``evaluate_sequence``: poses
+    finite, ATE < 2 cm, PSNR >= 18 dB, launches K1 = K2f = K2b = the tracking
+    iterations, K4 = K5 = init + 9 x 100 mapping iterations, K3 = 9 within
+    ``track_rgbd`` (one densify render per tracked frame) and 19 with the
+    evaluation's renders, K7 = K8 = 0; frame times, and one more frame profiled; a second System
+    over the first 4 frames bitwise equal;
+13. the System with ``exact_stop=True`` and with ``paired=True`` over the
+    first 5 frames: ATE < 2 cm, K7 (K8) = the tracking iterations, K1 = 0.
 It prints a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -87,6 +106,35 @@ FRAMES = 10
 MAP_CALLS = 5
 MAP_ITERS = None  # None: MappingConfig's default (100)
 N_WINDOW = 4  # mapping window: the identity frame and 3 poses 2 cm / 2 deg away
+
+# Phases 12-13: the System's run lengths and the generated sequence's length.
+SYS_FRAMES = 10
+SYS_RERUN_FRAMES = 4
+SYS_KERNEL_FRAMES = 5
+SYS_SEQ_FRAMES = 100
+# configs/tum1.yaml (the reference's Examples/RGB-D/tum/TUM1.yaml) as a dict.
+TUM1 = {
+    "Dataset": {"name": "tum_desk1", "type": "tum",
+                "path": "datasets/TUM_RGBD/rgbd_dataset_freiburg1_desk"},
+    "Camera": {"width": 640, "height": 480, "fx": 517.306408, "fy": 516.469215,
+               "cx": 318.643040, "cy": 255.313989, "fps": 30.0},
+    "Camera.k1": 0.262383, "Camera.k2": -0.953104, "Camera.p1": -0.005358,
+    "Camera.p2": 0.002628, "Camera.k3": 1.163314, "Camera.bf": 40.0,
+    "ThDepth": 40.0, "DepthMapFactor": 5000.0,
+    "ORBextractor.nFeatures": 1000, "ORBextractor.scaleFactor": 1.2,
+    "ORBextractor.nLevels": 8, "ORBextractor.iniThFAST": 20, "ORBextractor.minThFAST": 7,
+    "Mapping": {"numIters": 100, "imWeight": 1.0, "depthWeight": 0.7, "surDepthWeight": 0.35,
+                "regLongWeight": 5.0, "regScalarWeight": 10, "lambda": 0.8,
+                "lrsMean3D": 0.0001, "lrsRgb": 0.0025, "lrsUnnormRotation": 0.001,
+                "lrsLogitOpacities": 0.05, "lrsLogScales": 0.001, "backgroundColor": 0.0,
+                "pruneOpcities": 0.005, "scaleModifier": 1.0, "initScalarMethod": 2,
+                "raduisDepthRatio": 3.0, "madienMul": 10, "useRadiusFilter": False},
+    "Tracking": {"numIters": 200, "lrsCamQuat": 0.002, "lrsCamTrans": 0.00215,
+                 "imWeight": 0.7, "featureWeight": 0.1, "depthWeight": 1.0,
+                 "useSurDepth": True},
+    "Debug": {"useWandb": False, "useLoop": True},
+    "Evalution": {"enable": True, "savePly": True, "saveRootPath": "experiments"},
+}
 
 CAM_KW = dict(fx=517.3, fy=516.5, cx=318.6, cy=255.3, width=640, height=480)
 N_SPLATS = 250_000
@@ -165,6 +213,73 @@ def axis_angle_pose(torch, axis, deg: float, trans, dev):
     h = math.radians(deg) / 2.0
     q = torch.tensor([math.cos(h), *(math.sin(h) * a)], dtype=torch.float32, device=dev)
     return pose_to_matrix(q, torch.tensor(trans, dtype=torch.float32, device=dev))
+
+
+def check_tracking_kernel(torch, checks, label, kernel, plain, raw, q, t, cam, gt, gt_edges,
+                          n_edge):
+    """Phases 4, 10 and 11: a fused tracking kernel against its plain version
+    on the pack ``raw`` projected at the pose (``q``, ``t``): the loss under
+    both depth modes (1e-3 relative), the per-instance gradients with the
+    loss-edge pixels left out (``gt_edges``, ``n_edge`` of them; 8e-4 +
+    2e-3 |p|), and the pose gradient through K2f / K2b against the plain
+    projection with autograd (2e-2 relative). ``kernel`` and ``plain`` map
+    (screen, gt, use_sur) to (im_w image_l1, depth_w depth_l1, d_screen).
+    Returns the gradients' max-abs error, the kernel's gradients with the
+    median depth, and the screen pack."""
+    from gsorb_slam_tpu_torch.core.transforms import pose_to_matrix
+    from gsorb_slam_tpu_torch.raster.instances import rt_from_matrix, screen_rows
+    from gsorb_slam_tpu_torch.raster.preprocess_kernel import (
+        preprocess_fwd,
+        preprocess_instances_kernel,
+    )
+
+    with torch.no_grad():
+        screen = preprocess_fwd(raw, rt_from_matrix(pose_to_matrix(q, t)).contiguous(), cam)
+        for use_sur in (True, False):
+            img_k, dep_k, _ = kernel(screen, gt, use_sur)
+            img_p, dep_p, _ = plain(screen, gt, use_sur)
+            torch.cuda.synchronize()
+            lk, lp = float(img_k + dep_k), float(img_p + dep_p)
+            checks.record(f"{label} use_sur={int(use_sur)} loss rel-err", abs(lk - lp) / abs(lp),
+                          1e-3)
+        # Per-instance gradients, leaving out the pixels where the loss is
+        # discontinuous within rounding (see gt_without_loss_edges).
+        print(f"# {label} gradient check: {n_edge} of {gt.shape[0] * gt.shape[2]} pixels left "
+              f"out (loss discontinuous within rounding)", flush=True)
+        for use_sur in (True, False):
+            _, _, g_k = kernel(screen, gt_edges, use_sur)
+            _, _, g_p = plain(screen, gt_edges, use_sur)
+            ratio = (g_k - g_p).abs() / (8e-4 + 2e-3 * g_p.abs())
+            if not checks.record(f"{label} use_sur={int(use_sur)} grads max "
+                                 f"|k-p|/(8e-4+2e-3|p|)", float(ratio.max()), 1.0):
+                t_i, r_i, k_i = np.unravel_index(int(ratio.argmax()), tuple(ratio.shape))
+                print(f"#   worst: tile {t_i} row {r_i} slot {k_i} kernel "
+                      f"{float(g_k[t_i, r_i, k_i]):.6e} plain {float(g_p[t_i, r_i, k_i]):.6e}; "
+                      f"{int((ratio > 1).sum())} elements out of tolerance, rows "
+                      f"{sorted(set((ratio > 1).nonzero()[:, 1].tolist()))}", flush=True)
+            if use_sur:
+                err, d_screen = float((g_k - g_p).abs().max()), g_k
+
+    def pose_grad(use_kernels: bool):
+        qq = q.clone().requires_grad_(True)
+        tt = t.clone().requires_grad_(True)
+        with torch.enable_grad():
+            rt = rt_from_matrix(pose_to_matrix(qq, tt))
+            if use_kernels:
+                scr = preprocess_instances_kernel(raw, rt, cam)
+                _, _, d = kernel(scr.detach(), gt, True)
+            else:
+                scr = screen_rows(raw, rt, cam)
+                _, _, d = plain(scr.detach(), gt, True)
+            torch.autograd.backward(scr, d)
+        return qq.grad, tt.grad
+
+    gq_k, gt_k = pose_grad(True)
+    gq_p, gt_p = pose_grad(False)
+    checks.record(f"{label} pose grad (quat) rel-err, kernels vs plain", rel_err(gq_k, gq_p), 2e-2)
+    checks.record(f"{label} pose grad (trans) rel-err, kernels vs plain", rel_err(gt_k, gt_p),
+                  2e-2)
+    return err, d_screen, screen
 
 
 def phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg) -> dict:
@@ -333,9 +448,10 @@ def phase_mapping(torch, checks, gm, cam, rcfg, dev) -> dict:
                                      [cur_bins, *kf_bins], len(poses), len(poses), device=dev)
         budget = window_chunk_budget(frames.bins_counts, rcfg.chunk)
         prefix = prefix_of(gm1)
-        gm_v, losses = map_window(prefix_view(gm1, prefix), frames,
-                                  torch.Generator().manual_seed(0), cam, mcfg, rcfg,
-                                  num_iters=n_iters, chunk_budget=budget)
+        draws = torch.randint(0, frames.n_frames, (n_iters,),
+                              generator=torch.Generator().manual_seed(0)).tolist()
+        gm_v, losses = map_window(prefix_view(gm1, prefix), frames, draws, cam, mcfg, rcfg,
+                                  chunk_budget=budget)
         gm2 = prefix_writeback(gm1, gm_v)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
@@ -365,8 +481,8 @@ def phase_mapping(torch, checks, gm, cam, rcfg, dev) -> dict:
 
     def run():
         with torch.no_grad():
-            return map_window(prefix_view(gm1, prefix), frames, torch.Generator().manual_seed(0),
-                              cam, mcfg, rcfg, num_iters=n_iters, chunk_budget=budget)
+            return map_window(prefix_view(gm1, prefix), frames, draws, cam, mcfg, rcfg,
+                              chunk_budget=budget)
 
     def same(m) -> bool:
         return all(torch.equal(getattr(m, n), getattr(gm_v, n)) for n in names)
@@ -393,6 +509,147 @@ def phase_mapping(torch, checks, gm, cam, rcfg, dev) -> dict:
 
     layout = window_layouts(frames, gm1.capacity, cam, rcfg, budget)[0]
     return dict(gm=gm1, layout=layout, pose=poses[0], n_iters=n_iters, launches=launches)
+
+
+def phase_system(torch, checks, dev) -> dict:
+    """Phases 12 and 13: the RGB-D System over a generated TUM-like sequence,
+    then its exact-stop and paired-rect tracking configurations."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.eval.ate import ate_rmse
+    from gsorb_slam_tpu_torch.eval.evaluate import evaluate_sequence
+    from gsorb_slam_tpu_torch.interop import system_config_from_dict
+    from gsorb_slam_tpu_torch.slam.dataset import TUMLikeDataset
+    from gsorb_slam_tpu_torch.slam.system import System
+    from gsorb_slam_tpu_torch.splat.gaussians import PARAM_NAMES
+
+    t0 = time.perf_counter()
+    width, height = TUM1["Camera"]["width"], TUM1["Camera"]["height"]
+    ds = TUMLikeDataset(n_frames=SYS_SEQ_FRAMES, width=width, height=height,
+                        apply_distortion=False, noise=True, seed=0, device=dev)
+    frames = [ds[i] for i in range(SYS_FRAMES)]
+    moves = [np.linalg.norm(np.linalg.inv(b.gt_T_cw)[:3, 3] - np.linalg.inv(a.gt_T_cw)[:3, 3])
+             for a, b in zip(frames[:-1], frames[1:])]
+    print(f"# phase 12: TUM-like sequence of {SYS_SEQ_FRAMES} frames of {width}x{height} "
+          f"generated in "
+          f"{time.perf_counter() - t0:.2f} s; its first {SYS_FRAMES} frames move "
+          f"{np.mean(moves) * 100:.2f} cm per frame on average", flush=True)
+    cfg = system_config_from_dict(TUM1)
+    raster = System.default_raster_config(width)
+
+    def run(rcfg, n, snapshot_at=None):
+        system = System(cfg, raster=rcfg, seed=0, device=dev)
+        rows, snap = [], None
+        for i, fr in enumerate(frames[:n]):
+            tm = dict(system.timings)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            system.track_rgbd(fr.rgb, fr.depth, fr.timestamp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            rows.append((wall, system.timings["track"] - tm["track"],
+                         system.timings["map"] - tm["map"]))
+            if i + 1 == snapshot_at:
+                snap = {k: getattr(system.gm, k).clone() for k in PARAM_NAMES}
+        return system, np.asarray(rows), snap
+
+    def ate(system, n):
+        return ate_rmse([r.T_cw for r in system.trajectory[:n]], [fr.gt_T_cw for fr in frames[:n]])
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    system, rows, snap = run(raster, SYS_FRAMES, snapshot_at=SYS_RERUN_FRAMES)
+    torch.cuda.synchronize()
+    k3_system = _build.launches["blend_forward"]
+    # The frames already generated: the dataset would render them again.
+    result = evaluate_sequence(system, frames, stride=1)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    print(f"# System main path launches: {json.dumps(launches)}; K3 within track_rgbd "
+          f"{k3_system}", flush=True)
+    mcfg = system.cfg.mapping
+    n_track = sum(r.track_iters for r in system.trajectory[1:])
+    n_map = mcfg.init_iters + mcfg.num_iters * (SYS_FRAMES - 1)
+    for name, want in (("fused_track_fast", n_track), ("preprocess_fwd", n_track),
+                       ("preprocess_bwd", n_track), ("blend_flat_fwd", n_map),
+                       ("blend_flat_bwd", n_map), ("fused_track_exact", 0), ("paired_track", 0)):
+        checks.record(f"System {name} launches == {want}", launches[name], want,
+                      ok=launches[name] == want)
+    # One densify render per tracked frame, then one evaluation render per frame.
+    checks.record(f"System blend_forward launches in track_rgbd == {SYS_FRAMES - 1}",
+                  k3_system, SYS_FRAMES - 1, ok=k3_system == SYS_FRAMES - 1)
+    want_k3 = 2 * SYS_FRAMES - 1
+    checks.record(f"System blend_forward launches with evaluation == {want_k3}",
+                  launches["blend_forward"], want_k3, ok=launches["blend_forward"] == want_k3)
+    poses = np.stack([r.T_cw for r in system.trajectory])
+    checks.record("System poses finite", 0.0, 0.0,
+                  ok=bool(np.isfinite(poses).all()) and len(poses) == SYS_FRAMES)
+    print(f"# System evaluation: {json.dumps(result)}", flush=True)
+    checks.record("System ATE RMSE (m, Horn-aligned)", result["ate_rmse"], 0.02)
+    checks.record("System PSNR (dB, at least)", result["psnr"], 18.0, ok=result["psnr"] >= 18.0)
+    per_frame_err = [float(np.linalg.norm(np.linalg.inv(r.T_cw)[:3, 3]
+                                          - np.linalg.inv(fr.gt_T_cw)[:3, 3]))
+                     for r, fr in zip(system.trajectory, frames)]
+    print(f"# System per-frame camera-centre error (mm, unaligned): "
+          f"{', '.join(f'{e * 1e3:.2f}' for e in per_frame_err)}; tracking iterations "
+          f"{[r.track_iters for r in system.trajectory]}; keyframes "
+          f"{[r.frame_id for r in system.trajectory if r.is_keyframe]}", flush=True)
+    summary = system.shutdown_summary()
+    tracked = rows[1:]
+    q25, q50, q75 = np.quantile(tracked[:, 0], (0.25, 0.5, 0.75))
+    e2e = {
+        "frame_s_median": float(q50), "frame_s_q25": float(q25), "frame_s_q75": float(q75),
+        "fps": float(len(tracked) / tracked[:, 0].sum()),
+        "track_s_per_frame": float(np.median(tracked[:, 1])),
+        "map_s_per_frame": float(np.median(tracked[:, 2])),
+        "rest_s_per_frame": float(np.median(tracked[:, 0] - tracked[:, 1] - tracked[:, 2])),
+        "frame0_s": float(rows[0, 0]),
+        "ate_rmse_m": result["ate_rmse"], "psnr_db": result["psnr"],
+        "depth_l1_m": result["depth_l1"], "ssim": result["ssim"], "ms_ssim": result["ms_ssim"],
+        "avg_tracking_s": summary["avg_tracking_s"], "avg_mapping_s": summary["avg_mapping_s"],
+        "compile_s": summary["compile_s"], "gaussians": summary["total_gaussians"],
+        "keyframes": summary["n_keyframes"], "bin_dropped_frac": summary["bin_dropped_frac"],
+    }
+    print(f"# System end to end (frames 1-{SYS_FRAMES - 1}; frame 0 is the seed and "
+          f"{mcfg.init_iters} warm-up iterations): {json.dumps(e2e)}", flush=True)
+    print(f"# System frame wall times (s): {', '.join(f'{v:.4f}' for v in rows[:, 0])}",
+          flush=True)
+    nxt = ds[SYS_FRAMES]
+    profile_call(torch, lambda: system.track_rgbd(nxt.rgb, nxt.depth, nxt.timestamp),
+                 float(tracked[:, 0].min()), f"System frame {SYS_FRAMES}")
+
+    # A second System over the first frames from the same seed: the same
+    # trajectory and map, bit for bit.
+    system2, _, _ = run(raster, SYS_RERUN_FRAMES)
+    same = all(np.array_equal(a.T_cw, b.T_cw)
+               for a, b in zip(system2.trajectory, system.trajectory[:SYS_RERUN_FRAMES]))
+    same &= all(torch.equal(getattr(system2.gm, k), snap[k]) for k in PARAM_NAMES)
+    checks.record(f"System rerun of {SYS_RERUN_FRAMES} frames bitwise equal", 0.0, 0.0, ok=same)
+    del system, system2, snap
+
+    # ---- 13. the exact-stop and paired-rect configurations ----
+    out = {"e2e": e2e, "launches": launches}
+    for label, kw, kname in (("exact_stop", dict(exact_stop=True), "fused_track_exact"),
+                             ("paired", dict(paired=True), "paired_track")):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        sys_m, rows_m, _ = run(dataclasses.replace(raster, **kw), SYS_KERNEL_FRAMES)
+        torch.cuda.synchronize()
+        lm = dict(_build.launches)
+        n_it = sum(r.track_iters for r in sys_m.trajectory[1:])
+        print(f"# System {label}=True launches: {json.dumps(lm)}; frame wall times (s) "
+              f"{', '.join(f'{v:.4f}' for v in rows_m[:, 0])}; frames 1-{SYS_KERNEL_FRAMES - 1}: "
+              f"tracking {np.median(rows_m[1:, 1]):.4f} s, mapping {np.median(rows_m[1:, 2]):.4f}"
+              f" s per frame (medians); tracking iterations "
+              f"{[r.track_iters for r in sys_m.trajectory]}", flush=True)
+        checks.record(f"System {label} {kname} launches == {n_it}", lm[kname], n_it,
+                      ok=lm[kname] == n_it and n_it > 0)
+        checks.record(f"System {label} fused_track_fast launches == 0", lm["fused_track_fast"],
+                      0, ok=lm["fused_track_fast"] == 0)
+        checks.record(f"System {label} ATE RMSE over {SYS_KERNEL_FRAMES} frames (m)",
+                      ate(sys_m, SYS_KERNEL_FRAMES), 0.02)
+        out[kname] = lm[kname]
+        del sys_m
+    return out
 
 
 def profile_call(torch, fn, best_s: float, what: str) -> None:
@@ -447,8 +704,18 @@ def main() -> int:
         gt_without_loss_edges,
         pack_instances,
         tile_gt_images,
+        tracking_blend,
         tracking_loss_grad,
         tracking_loss_grad_plain,
+    )
+    from gsorb_slam_tpu_torch.raster.paired import (
+        pack_gt_pairs,
+        pair_bins,
+        pair_gt_rows,
+        tracking_loss_grad_paired,
+        tracking_loss_grad_paired_plain,
+        tracking_pair_order,
+        unpack_gt_pairs,
     )
     from gsorb_slam_tpu_torch.raster.flat_kernels import (
         blend_flat_backward,
@@ -481,9 +748,12 @@ def main() -> int:
 
     # ---- 1. build (loading the library also turns TF32 off) ----
     t0 = time.perf_counter()
+    _build.report_ptxas = True
     _build.library()
     print(f"# kernel build + load: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.last_build_seconds:.2f} s)", flush=True)
+    for line in _build.ptxas_report:  # per kernel: registers, spills, shared memory
+        print(f"#   ptxas: {line}", flush=True)
 
     # ---- scene (bench.py:107-127) ----
     cam = Camera(**CAM_KW)
@@ -559,66 +829,18 @@ def main() -> int:
     im_w, depth_w = tcfg.im_weight, tcfg.depth_weight
     counts_t = bins_t.counts
     with torch.no_grad():
-        for use_sur in (True, False):
-            img_k, dep_k, g_k = tracking_loss_grad(screen_k, counts_t, gt4, cam, rcfg_t,
-                                                   im_w, depth_w, use_sur)
-            img_p, dep_p, g_p = tracking_loss_grad_plain(screen_k, counts_t, gt4, cam, rcfg_t,
-                                                         im_w, depth_w, use_sur)
-            torch.cuda.synchronize()
-            lk, lp = float(img_k + dep_k), float(img_p + dep_p)
-            checks.record(f"K1 use_sur={int(use_sur)} loss rel-err", abs(lk - lp) / abs(lp), 1e-3)
-        # Per-instance gradients, leaving out the pixels where the loss is
-        # discontinuous within rounding (see gt_without_loss_edges).
         gt4_e, n_edge = gt_without_loss_edges(screen_k, counts_t, gt4, cam, rcfg_t)
-        print(f"# K1 gradient check: {n_edge} of {gt4.shape[0] * gt4.shape[2]} pixels left "
-              f"out (loss discontinuous within rounding)", flush=True)
-        for use_sur in (True, False):
-            _, _, g_k = tracking_loss_grad(screen_k, counts_t, gt4_e, cam, rcfg_t,
-                                           im_w, depth_w, use_sur)
-            _, _, g_p = tracking_loss_grad_plain(screen_k, counts_t, gt4_e, cam, rcfg_t,
-                                                 im_w, depth_w, use_sur)
-            ratio = (g_k - g_p).abs() / (8e-4 + 2e-3 * g_p.abs())
-            err = float(ratio.max())
-            if not checks.record(f"K1 use_sur={int(use_sur)} grads max |k-p|/(8e-4+2e-3|p|)",
-                                 err, 1.0):
-                t_i, r_i, k_i = np.unravel_index(int(ratio.argmax()), tuple(ratio.shape))
-                print(f"#   worst: tile {t_i} row {r_i} slot {k_i} kernel "
-                      f"{float(g_k[t_i, r_i, k_i]):.6e} plain {float(g_p[t_i, r_i, k_i]):.6e}; "
-                      f"{int((ratio > 1).sum())} elements out of tolerance, rows "
-                      f"{sorted(set((ratio > 1).nonzero()[:, 1].tolist()))}", flush=True)
-            if use_sur:
-                k1_err = float((g_k - g_p).abs().max())
-                d_screen = g_k
+    k1_err, d_screen, _ = check_tracking_kernel(
+        torch, checks, "K1",
+        lambda s_, g_, u: tracking_loss_grad(s_, counts_t, g_, cam, rcfg_t, im_w, depth_w, u),
+        lambda s_, g_, u: tracking_loss_grad_plain(s_, counts_t, g_, cam, rcfg_t, im_w,
+                                                   depth_w, u),
+        raw, q1, t1, cam, gt4, gt4_e, n_edge)
     # ---- 3b. K2b against its plain version (d_screen = K1's gradients) ----
     drt_k = preprocess_bwd(raw, rt1, d_screen, cam, sm)
     drt_p = preprocess_bwd_plain(raw, rt1, d_screen, cam, sm)
     k2b_err = float((drt_k - drt_p).abs().max())
     checks.record("K2b pose cotangent rel-err", rel_err(drt_k, drt_p), 1e-3)
-
-    # ---- 4b. pose gradient: K2f -> K1 -> K2b against plain + autograd ----
-    def pose_grad(use_kernels: bool):
-        q = q1.clone().requires_grad_(True)
-        t = t1.clone().requires_grad_(True)
-        with torch.enable_grad():
-            rt = rt_from_matrix(pose_to_matrix(q, t))
-            if use_kernels:
-                from gsorb_slam_tpu_torch.raster.preprocess_kernel import (
-                    preprocess_instances_kernel,
-                )
-                screen = preprocess_instances_kernel(raw, rt, cam, sm)
-                _, _, d = tracking_loss_grad(screen.detach(), counts_t, gt4, cam, rcfg_t,
-                                             im_w, depth_w, True)
-            else:
-                screen = screen_rows(raw, rt, cam, sm)
-                _, _, d = tracking_loss_grad_plain(screen.detach(), counts_t, gt4, cam, rcfg_t,
-                                                   im_w, depth_w, True)
-            torch.autograd.backward(screen, d)
-        return q.grad, t.grad
-
-    gq_k, gt_k = pose_grad(True)
-    gq_p, gt_p = pose_grad(False)
-    checks.record("pose grad (quat) rel-err, kernels vs plain", rel_err(gq_k, gq_p), 2e-2)
-    checks.record("pose grad (trans) rel-err, kernels vs plain", rel_err(gt_k, gt_p), 2e-2)
 
     # ---- 5. the main path ----
     T_init = torch.eye(4, device=dev)
@@ -704,6 +926,45 @@ def main() -> int:
     # ---- 8-9. the mapping step and its timings ----
     mp = phase_mapping(torch, checks, gm, cam, rcfg, dev)
 
+    # ---- 10. K7 against its plain version on phase 4's pack ----
+    rcfg_e = dataclasses.replace(rcfg_t, exact_stop=True)
+    with torch.no_grad():
+        gt4_e7, n_edge7 = gt_without_loss_edges(screen_k, counts_t, gt4, cam, rcfg_e)
+    k7_err, _, _ = check_tracking_kernel(
+        torch, checks, "K7",
+        lambda s_, g_, u: tracking_loss_grad(s_, counts_t, g_, cam, rcfg_e, im_w, depth_w, u),
+        lambda s_, g_, u: tracking_loss_grad_plain(s_, counts_t, g_, cam, rcfg_e, im_w,
+                                                   depth_w, u),
+        raw, q1, t1, cam, gt4, gt4_e7, n_edge7)
+
+    # ---- 11. K8 against its plain version on the paired tracking view ----
+    rcfg_p = tracking_raster_config(dataclasses.replace(rcfg, paired=True))
+    with torch.no_grad():
+        bins_p0 = bin_gaussians(prep_t, cam, rcfg_p)
+        perm = tracking_pair_order(bins_p0, cam, rcfg_p)
+        bins_p = pair_bins(bins_p0, perm)
+        raw_p = pack_raw_instances(*params, bins_p)
+        counts_p = bins_p.counts
+        gt_pairs = pack_gt_pairs(gt_color, gt_depth, cam, rcfg_p, perm)
+        screen_p0 = preprocess_fwd(raw_p, rt1, cam, sm)
+        rows_e, n_edge8 = gt_without_loss_edges(screen_p0, counts_p, unpack_gt_pairs(gt_pairs),
+                                                cam, rcfg_p, tile_ids=perm)
+    print(f"# K8 view: {counts_p.numel()} rect tiles of 16x8 in {counts_p.numel() // 2} pairs, "
+          f"capacity {raw_p.shape[2]}, max count {int(counts_p.max())}, chunks walked per pair "
+          f"{int(((counts_p.reshape(-1, 2).amax(1) + rcfg_p.chunk - 1) // rcfg_p.chunk).sum())}"
+          f" (rows unpaired: {int(((counts_p + rcfg_p.chunk - 1) // rcfg_p.chunk).sum())})",
+          flush=True)
+    k8_err, _, screen_pr = check_tracking_kernel(
+        torch, checks, "K8",
+        lambda s_, g_, u: tracking_loss_grad_paired(s_, counts_p, g_, cam, rcfg_p, im_w,
+                                                    depth_w, u, tile_ids=perm),
+        lambda s_, g_, u: tracking_loss_grad_paired_plain(s_, counts_p, g_, cam, rcfg_p, im_w,
+                                                          depth_w, u, tile_ids=perm),
+        raw_p, q1, t1, cam, gt_pairs, pair_gt_rows(rows_e), n_edge8)
+
+    # ---- 12-13. the System and its two kernel configurations ----
+    sysres = phase_system(torch, checks, dev)
+
     with torch.no_grad():
         k1_ms = time_ms(torch, lambda: tracking_loss_grad(
             screen_k, counts_t, gt4, cam, rcfg_t, im_w, depth_w, True), 20)
@@ -713,6 +974,14 @@ def main() -> int:
         k2f_plain_ms = time_ms(torch, lambda: screen_rows(raw, rt1, cam, sm), 5)
         k2b_ms = time_ms(torch, lambda: preprocess_bwd(raw, rt1, d_screen, cam, sm), 50)
         k2b_plain_ms = time_ms(torch, lambda: preprocess_bwd_plain(raw, rt1, d_screen, cam, sm), 5)
+        k7_ms = time_ms(torch, lambda: tracking_loss_grad(
+            screen_k, counts_t, gt4, cam, rcfg_e, im_w, depth_w, True), 20)
+        k7_plain_ms = time_ms(torch, lambda: tracking_loss_grad_plain(
+            screen_k, counts_t, gt4, cam, rcfg_e, im_w, depth_w, True), 2)
+        k8_ms = time_ms(torch, lambda: tracking_loss_grad_paired(
+            screen_pr, counts_p, gt_pairs, cam, rcfg_p, im_w, depth_w, True, tile_ids=perm), 20)
+        k8_plain_ms = time_ms(torch, lambda: tracking_loss_grad_paired_plain(
+            screen_pr, counts_p, gt_pairs, cam, rcfg_p, im_w, depth_w, True, tile_ids=perm), 2)
         k3_ms = time_ms(torch, lambda: blend_forward(packed_r, bins_r.counts, cam, rcfg), 20)
         k3_plain_ms = time_ms(torch, lambda: blend_forward_plain(
             packed_r, bins_r.counts, cam, rcfg), 2)
@@ -733,8 +1002,10 @@ def main() -> int:
             packed_m, cb_m, g_m, cam, rcfg, tile_batch=300), 1)
         # The (pixel, instance) pairs this run's data needs, from the plain
         # blends (the same per-pixel loop as the kernels).
-        pairs_k1, pairs_k3, pairs_k4 = {}, {}, {}
-        blend_forward_plain(screen_k, counts_t, cam, rcfg_t, pairs=pairs_k1)
+        pairs_k1, pairs_k3, pairs_k4, pairs_k7, pairs_k8 = {}, {}, {}, {}, {}
+        tracking_blend(screen_k, counts_t, cam, rcfg_t, pairs=pairs_k1)
+        tracking_blend(screen_k, counts_t, cam, rcfg_e, pairs=pairs_k7)
+        tracking_blend(screen_pr, counts_p, cam, rcfg_p, tile_ids=perm, pairs=pairs_k8)
         blend_forward_plain(packed_r, bins_r.counts, cam, rcfg, pairs=pairs_k3)
         blend_flat_forward_plain(packed_m, cb_m, cam, rcfg, pairs=pairs_k4)
         live_m = float((cb_m.indices >= 0).sum())
@@ -757,6 +1028,16 @@ def main() -> int:
         live_t * 10 * 4 + n_tiles * 4 * px * 4 + slots_t * 16 * 4,
         (pairs_k1["evaluated"] + pairs_k1["to_last"]) * EVAL_OPS_PER_PAIR
         + pairs_k1["applied"] * (BLEND_APPLY_OPS_PER_PAIR + TRACK_BWD_APPLY_OPS_PER_PAIR))
+    b_k7, by_k7 = bound_ms(
+        live_t * 10 * 4 + n_tiles * 4 * px * 4 + slots_t * 16 * 4,
+        (pairs_k7["evaluated"] + pairs_k7["to_last"]) * EVAL_OPS_PER_PAIR
+        + pairs_k7["applied"] * (BLEND_APPLY_OPS_PER_PAIR + TRACK_BWD_APPLY_OPS_PER_PAIR))
+    live_p = float(counts_p.sum())
+    slots_p = counts_p.numel() * raw_p.shape[2]
+    b_k8, by_k8 = bound_ms(
+        live_p * 10 * 4 + gt_pairs.numel() * 4 + slots_p * 16 * 4,
+        (pairs_k8["evaluated"] + pairs_k8["to_last"]) * EVAL_OPS_PER_PAIR
+        + pairs_k8["applied"] * (BLEND_APPLY_OPS_PER_PAIR + TRACK_BWD_APPLY_OPS_PER_PAIR))
     b_k2f, by_k2f = bound_ms(slots_t * (14 + 16) * 4, slots_t * PROJ_OPS_PER_INSTANCE)
     b_k2b, by_k2b = bound_ms(
         slots_t * len(POSE_SCREEN_ROWS) * 4 + nz_k2b * POSE_RAW_ROWS * 4,
@@ -775,6 +1056,8 @@ def main() -> int:
     b_k5, by_k5 = bound_ms(
         live_m * 10 * 4 + resid_m + n_tiles * 7 * px * 4 + live_m * 10 * 4,
         pairs_k4["to_last"] * EVAL_OPS_PER_PAIR + pairs_k4["applied"] * TRACK_BWD_APPLY_OPS_PER_PAIR)
+    print(f"# (pixel, instance) pairs: K7 {json.dumps(pairs_k7)}, K8 {json.dumps(pairs_k8)} "
+          f"over {live_p:.0f} live rect-tile instances", flush=True)
     print(f"# (pixel, instance) pairs: K1 {json.dumps(pairs_k1)}, K3 {json.dumps(pairs_k3)}, "
           f"K4 / K5 {json.dumps(pairs_k4)}; live instances: tracking {live_t:.0f}, render "
           f"{live_r:.0f}, mapping {live_m:.0f} in {n_chunks_m:.0f} chunks; K2b slots with a "
@@ -786,7 +1069,7 @@ def main() -> int:
                 "bound_ms": b, "bound_by": by, "library_ms": None}
 
     kernels = [
-        entry("K1 fused_track_fast", "gsorb_slam_tpu_torch/csrc/fused_track_fast.cu",
+        entry("K1 fused_track_fast", "gsorb_slam_tpu_torch/csrc/fused_track.cu",
               "gsorb_slam_tpu/raster/pallas_raster.py:1492", launches["fused_track_fast"],
               k1_err, k1_ms, k1_plain_ms, b_k1, by_k1),
         entry("K2f preprocess_fwd", "gsorb_slam_tpu_torch/csrc/preprocess_instances.cu",
@@ -804,6 +1087,12 @@ def main() -> int:
         entry("K5 blend_flat_bwd", "gsorb_slam_tpu_torch/csrc/blend_flat.cu",
               "gsorb_slam_tpu/raster/pallas_raster.py:2014", mp["launches"]["blend_flat_bwd"],
               flat["k5_err"], k5_ms, k5_plain_ms, b_k5, by_k5),
+        entry("K7 fused_track_exact", "gsorb_slam_tpu_torch/csrc/fused_track.cu",
+              "gsorb_slam_tpu/raster/pallas_raster.py:1435", sysres["fused_track_exact"],
+              k7_err, k7_ms, k7_plain_ms, b_k7, by_k7),
+        entry("K8 paired_track", "gsorb_slam_tpu_torch/csrc/fused_track.cu",
+              "gsorb_slam_tpu/raster/paired.py:446", sysres["paired_track"],
+              k8_err, k8_ms, k8_plain_ms, b_k8, by_k8),
     ]
     for k in kernels:
         print(f"# {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "

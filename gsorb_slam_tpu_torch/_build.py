@@ -28,13 +28,17 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = (
-    "blend_flat.cu", "blend_forward.cu", "fused_track_fast.cu", "preprocess_instances.cu",
+    "blend_flat.cu", "blend_forward.cu", "fused_track.cu", "preprocess_instances.cu",
 )
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 )
+# Set before the first build to have ptxas report, per kernel, its
+# registers, spills and shared memory into ptxas_report (the flag is part of
+# the library's digest).
+report_ptxas = False
 
 # Launch counts per kernel, by kernel name.
 launches: dict[str, int] = {
@@ -44,21 +48,30 @@ launches: dict[str, int] = {
     "blend_forward": 0,  # K3
     "blend_flat_fwd": 0,  # K4
     "blend_flat_bwd": 0,  # K5
+    "fused_track_exact": 0,  # K7
+    "paired_track": 0,  # K8
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 last_build_seconds: float | None = None
+build_seconds_total = 0.0  # every build of this process (a System's compile_s)
+# ptxas's report of the last build under report_ptxas (empty when an
+# earlier build was reused).
+ptxas_report: list[str] = []
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# K1, K7 and K8 (csrc/fused_track.cu) share one argument list.
+_TRACK_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]
 _SIGNATURES = {
     "gsorb_blend_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gsorb_blend_flat_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gsorb_blend_flat_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gsorb_fused_track_fast": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _F, _F, _I, _P],
+    "gsorb_fused_track_fast": _TRACK_ARGS,
+    "gsorb_fused_track_exact": _TRACK_ARGS,
+    "gsorb_paired_track": _TRACK_ARGS,
     "gsorb_preprocess_fwd": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     "gsorb_preprocess_bwd": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     "gsorb_preprocess_blocks": [ctypes.c_longlong],
@@ -81,8 +94,12 @@ def _nvcc() -> str:
     return path
 
 
+def _compile_flags() -> tuple[str, ...]:
+    return NVCC_FLAGS + (("-Xptxas", "-v") if report_ptxas else ())
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_compile_flags()).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -92,7 +109,7 @@ def _digest() -> str:
 def build() -> Path:
     """Compile every source in parallel and link the shared library;
     returns its path. Reuses an existing library with the same digest."""
-    global last_build_seconds
+    global last_build_seconds, build_seconds_total
     lib_path = BUILD_DIR / f"libgsorb_kernels_{_digest()}.so"
     if lib_path.exists():
         last_build_seconds = 0.0
@@ -103,16 +120,21 @@ def build() -> Path:
     objs = [BUILD_DIR / (Path(s).stem + f"_{os.getpid()}.o") for s in SOURCES]
     procs = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+            [nvcc, *_compile_flags(), "-c", str(CSRC / src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for src, obj in zip(SOURCES, objs)
     ]
     errors = []
+    ptxas_report.clear()
     for src, proc in zip(SOURCES, procs):
         out, _ = proc.communicate()
         if proc.returncode != 0:
             errors.append(f"{src}:\n{out}")
+        ptxas_report.extend(
+            line.replace("ptxas info    : ", "").strip() for line in out.splitlines()
+            if "Compiling entry" in line or "registers" in line or "spill" in line
+        )
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
@@ -126,6 +148,7 @@ def build() -> Path:
     for obj in objs:
         obj.unlink(missing_ok=True)
     last_build_seconds = time.perf_counter() - t0
+    build_seconds_total += last_build_seconds
     return lib_path
 
 

@@ -14,13 +14,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping, Optional
 
-try:  # only YAML files need PyYAML; dicts load without it
-    import yaml
-
-    _HAVE_YAML = True
-except ImportError:  # pragma: no cover
-    _HAVE_YAML = False
-
 
 @dataclasses.dataclass(frozen=True)
 class DatasetConfig:
@@ -184,8 +177,10 @@ def load_config(path_or_dict: Any) -> SystemConfig:
     if isinstance(path_or_dict, Mapping):
         root = dict(path_or_dict)
     else:
-        if not _HAVE_YAML:  # pragma: no cover
-            raise RuntimeError("PyYAML unavailable; pass a dict instead")
+        try:  # only YAML files need PyYAML; dicts load without it
+            import yaml
+        except ImportError as e:  # pragma: no cover
+            raise RuntimeError("PyYAML unavailable; pass a dict instead") from e
         with open(path_or_dict) as f:
             root = yaml.safe_load(f) or {}
 

@@ -14,6 +14,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from gsorb_slam_tpu_torch.core import config as C
 from gsorb_slam_tpu_torch.raster.types import RasterConfig
 from gsorb_slam_tpu_torch.slam.mapping import WindowFrames
 from gsorb_slam_tpu_torch.splat.gaussians import PARAM_NAMES, GaussianMap
@@ -89,3 +90,9 @@ def window_frames_from_numpy(
         bins_counts=t(d["bins_counts"], np.int32),
         n_frames=int(d["n_frames"]),
     )
+
+
+def system_config_from_dict(d: Mapping[str, Any]) -> C.SystemConfig:
+    """The port's ``SystemConfig`` from a reference-format dict (the keys of
+    ``configs/*.yaml``), without PyYAML."""
+    return C.load_config(dict(d))

@@ -7,11 +7,12 @@ Two kernels live here, each beside a plain version of the same function:
 - **K3** :func:`blend_forward` (``csrc/blend_forward.cu``), replacing the
   TPU per-tile forward blend ``_fwd_kernel``. Plain version:
   :func:`blend_forward_plain`.
-- **K1** :func:`tracking_loss_grad` (``csrc/fused_track_fast.cu``),
-  replacing the TPU fused tracking kernel ``_fused_track_kernel_fast``:
-  forward blend + masked L1 + cotangents + backward in one launch. Plain
-  version: :func:`tracking_loss_grad_plain` (the same blend, the masked L1,
-  and ``torch.autograd`` down to the packed instances).
+- **K1** / **K7** :func:`tracking_loss_grad` (``csrc/fused_track.cu``),
+  replacing the TPU fused tracking kernels ``_fused_track_kernel_fast``
+  (fast stop, K1) and ``_fused_track_kernel_exact`` (``exact_stop=True``,
+  K7): forward blend + masked L1 + cotangents + backward in one launch.
+  Plain version: :func:`tracking_loss_grad_plain` (the same blend, the
+  masked L1, and ``torch.autograd`` down to the packed instances).
 
 A wrapper launches its kernel for a CUDA tensor (or raises: there is no
 fallback) and takes the plain version only for a tensor on the CPU.
@@ -316,14 +317,30 @@ def tile_gt_images(
 
 
 def _tracking_args(packed, cfg, tile_ids):
-    if cfg.exact_stop:
-        raise NotImplementedError(
-            "tracking with exact_stop=True (the exact fused kernel, K7) is not ported yet"
-        )
     n_tiles, _, cap = packed.shape
     if tile_ids is None:
         tile_ids = torch.arange(n_tiles, dtype=torch.int32, device=packed.device)
     return tile_ids, min(cfg.chunk, cap)
+
+
+def tracking_blend(
+    packed: torch.Tensor,
+    counts: torch.Tensor,
+    cam: Camera,
+    cfg: RasterConfig,
+    tile_ids: torch.Tensor | None = None,
+    pairs: dict[str, int] | None = None,
+) -> torch.Tensor:
+    """The blend rows ``[T, 8, px]`` the tracking kernels see: the fast rule
+    with the T=0.5 crossing median, or with ``cfg.exact_stop`` the exact
+    rule with the median of the last applied instance with incoming
+    T > 0.5 (the TPU exact kernel's). ``pairs`` as in :func:`blend_tiles`."""
+    tile_ids, K = _tracking_args(packed, cfg, tile_ids)
+    ty, tx = tile_grid_shape(cam, cfg)
+    pu, pv = tile_pixels(tile_ids, tx, cfg.tile_w_px, cfg.tile_h_px)
+    out, _ = blend_tiles(packed, counts, pu, pv, K, exact=cfg.exact_stop,
+                         crossing_median=not cfg.exact_stop, pairs=pairs)
+    return out
 
 
 def tracking_loss_grad_plain(
@@ -337,16 +354,13 @@ def tracking_loss_grad_plain(
     use_sur_depth: bool,
     tile_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1's plain version: the fast-rule blend, the masked-sum L1 tracking
-    loss (mask = alpha > 0.99 & gt depth > 0, fixed) and autograd to the
-    packed instances. Returns ``(im_w * image_l1, depth_w * depth_l1,
-    d_packed [T, 16, cap])``."""
-    tile_ids, K = _tracking_args(packed, cfg, tile_ids)
-    ty, tx = tile_grid_shape(cam, cfg)
-    pu, pv = tile_pixels(tile_ids, tx, cfg.tile_w_px, cfg.tile_h_px)
+    """K1's and K7's plain version: the blend of :func:`tracking_blend`, the
+    masked-sum L1 tracking loss (mask = alpha > 0.99 & gt depth > 0, fixed)
+    and autograd to the packed instances. Returns ``(im_w * image_l1,
+    depth_w * depth_l1, d_packed [T, 16, cap])``."""
     x = packed.detach().requires_grad_(True)
     with torch.enable_grad():
-        out, _ = blend_tiles(x, counts, pu, pv, K, exact=False, crossing_median=True)
+        out = tracking_blend(x, counts, cam, cfg, tile_ids)
         gtd = gt_tiles[:, 3]
         mask = ((out[:, 4] > 0.99) & (gtd > 0)).to(torch.float32).detach()
         image_l1 = ((out[:, 0:3] - gt_tiles[:, 0:3]).abs() * mask[:, None]).sum()
@@ -365,9 +379,11 @@ def gt_without_loss_edges(
     cam: Camera,
     cfg: RasterConfig,
     eps: float = 1e-5,
+    tile_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, int]:
-    """``gt_tiles`` with depth 0 at the pixels where the tracking loss is
-    discontinuous within rounding, and their number.
+    """``gt_tiles`` (``[T, 4, px]``, one row per packed tile) with depth 0 at
+    the pixels where the tracking loss is discontinuous within rounding, and
+    their number.
 
     Those are the pixels whose blended alpha lies within ``eps`` of the 0.99
     mask threshold (the mask may flip) or whose color or depth residual lies
@@ -375,7 +391,7 @@ def gt_without_loss_edges(
     of the pixel by up to ``im_w * w``, so K1 and its plain version may
     disagree there by more than rounding; with depth 0 the pixels are out of
     the loss mask and both see the same signs and mask."""
-    out, _ = blend_forward_plain(packed, counts, cam, cfg)
+    out = tracking_blend(packed, counts, cam, cfg, tile_ids)
     edge = (out[:, 4] - 0.99).abs() < eps
     edge |= ((out[:, 0:3] - gt_tiles[:, 0:3]).abs() < eps).any(1)
     edge |= (out[:, 3] - gt_tiles[:, 3]).abs() < eps
@@ -395,8 +411,8 @@ def tracking_loss_grad(
     use_sur_depth: bool,
     tile_ids: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1: one fused tracking iteration -> ``(im_w * image_l1,
-    depth_w * depth_l1, d_packed)``.
+    """K1 (fast stop) or K7 (``cfg.exact_stop``): one fused tracking
+    iteration -> ``(im_w * image_l1, depth_w * depth_l1, d_packed)``.
 
     ``tile_ids`` maps each row of ``packed``/``gt_tiles`` to its global tile
     id (the pixel origin); identity by default. CUDA tensors launch the
@@ -421,14 +437,15 @@ def tracking_loss_grad(
     _build.check_tensor(gt_tiles, "gt_tiles", torch.float32, (n_tiles, 4, px), dev)
     grads = torch.empty((n_tiles, N_ATTR, cap), dtype=torch.float32, device=dev)
     loss = torch.empty((n_tiles, 2), dtype=torch.float32, device=dev)
+    name = "fused_track_exact" if cfg.exact_stop else "fused_track_fast"
     lib = _build.library()
-    _build.count_launch("fused_track_fast")
-    err = lib.gsorb_fused_track_fast(
+    _build.count_launch(name)
+    err = getattr(lib, f"gsorb_{name}")(
         packed.data_ptr(), counts.data_ptr(), tile_ids.data_ptr(), gt_tiles.data_ptr(),
         grads.data_ptr(), loss.data_ptr(), n_tiles, cap, K, tx, cfg.tile_w_px,
         cfg.tile_h_px, float(im_weight), float(depth_weight), int(bool(use_sur_depth)),
         _build.stream_handle(dev),
     )
-    _build.check(err, "fused_track_fast")
+    _build.check(err, name)
     sums = loss.sum(0)
     return sums[0], sums[1], grads

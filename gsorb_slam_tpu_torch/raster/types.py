@@ -16,10 +16,12 @@ class RasterConfig:
     The port computes in float32 throughout. These fields exist only for the
     TPU kernels' layout and are accepted with no effect here:
     ``blend_bf16``, ``elem_bf16``, ``chunk_unroll``, ``fused_tiles_per_step``,
-    ``fused_chunk_batch``, ``flat_group``, ``paired``, ``paired_sort``,
-    ``preprocess_pallas`` and ``debug_loss``. ``backend`` is likewise
-    ignored: the device of the input tensors selects the path (a CUDA tensor
-    runs the CUDA kernels, a CPU tensor their plain PyTorch versions).
+    ``fused_chunk_batch``, ``flat_group``, ``preprocess_pallas`` and
+    ``debug_loss``. ``backend`` is likewise ignored: the device of the input
+    tensors selects the path (a CUDA tensor runs the CUDA kernels, a CPU
+    tensor their plain PyTorch versions). ``paired`` and ``paired_sort``
+    take effect in tracking, as in the JAX package: the tracking view bins
+    16x8 rect tiles in pair-major order (``slam.tracking``).
     """
 
     tile: int = 16
@@ -48,11 +50,15 @@ class RasterConfig:
     chunk_budget: int = 8192
     flat_group: int = 4
     fused_tiles_per_step: int = 4
+    # Paired-rect tracking: the tracking view bins 16x8 rect tiles, two per
+    # square tile, and tracks them in pair-major order (fast stop only).
     paired: bool = False
     # Chunk K for the tracking view only (0 = chunk).
     track_chunk: int = 0
     fused_chunk_batch: int = 1
     sorted_pack_grad: bool = True
+    # Paired tracking pairs tiles by descending instance count (True) or as
+    # static vertical neighbours (False).
     paired_sort: bool = True
     preprocess_pallas: bool = True
     debug_loss: bool = False

@@ -270,25 +270,21 @@ def map_step(
 def map_window(
     gm: GaussianMap,
     frames: WindowFrames,
-    generator: torch.Generator,
+    frame_ids: list[int],
     cam: Camera,
     mcfg: MappingConfig,
     rcfg: RasterConfig,
-    num_iters: int | None = None,
     init_mode: bool = False,
     chunk_budget: int | None = None,
 ) -> tuple[GaussianMap, torch.Tensor]:
-    """``numIters`` Adam steps, each on a window frame drawn uniformly by
-    ``generator`` (a CPU ``torch.Generator``); returns (map, per-iteration
-    losses). ``chunk_budget`` (default ``rcfg.chunk_budget``; callers pass
+    """One Adam step on each window frame of ``frame_ids`` (the caller draws
+    them, one per iteration); returns (map, per-iteration losses).
+    ``chunk_budget`` (default ``rcfg.chunk_budget``; callers pass
     :func:`window_chunk_budget`) must hold every frame's live chunks."""
-    num_iters = int(num_iters or mcfg.num_iters)
     layouts = window_layouts(frames, gm.capacity, cam, rcfg,
                              int(chunk_budget or rcfg.chunk_budget))
-    n = max(frames.n_frames, 1)
     losses = []
-    for _ in range(num_iters):
-        k = int(torch.randint(0, n, (), generator=generator))
+    for k in frame_ids:
         gm, loss = map_step(gm, frames, k, layouts, cam, mcfg, rcfg, init_mode)
         losses.append(loss)
     return gm, torch.stack(losses)

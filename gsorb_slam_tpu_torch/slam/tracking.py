@@ -12,9 +12,12 @@ inlier set re-gated once at the halfway iteration (chi^2 < 5.991), the
 best-loss pose kept, and early stopping on |dloss| < ``early_stop_delta``.
 
 Each iteration is three kernel launches on CUDA: the per-instance
-projection K2f, the fused tracking kernel K1 (blend + loss + cotangents +
-backward) and the projection adjoint K2b. On CPU tensors the same loop runs
-their plain versions. Tile bins are built from the initial pose and rebuilt
+projection K2f, the fused tracking kernel (blend + loss + cotangents +
+backward) and the projection adjoint K2b. The fused kernel is K1 (fast
+stop), K7 (``exact_stop=True``) or, with ``paired=True``, K8 over 16x8 rect
+tiles in pair-major order (``raster/paired.py``; the pairing is rebuilt at
+every binning episode, as in the JAX package). On CPU tensors the same loop
+runs their plain versions. Tile bins are built from the initial pose and rebuilt
 at the ``rebin_iters`` iterations (``dilate_px`` covers the drift in
 between). With ``early_stop_delta <= 0`` the loop never waits for the
 device; otherwise each iteration reads the loss on the host to decide the
@@ -34,6 +37,12 @@ from gsorb_slam_tpu_torch.core.transforms import matrix_to_pose, pose_to_matrix
 from gsorb_slam_tpu_torch.raster.binning import TileBins, bin_gaussians
 from gsorb_slam_tpu_torch.raster.blend_kernels import tile_gt_images, tracking_loss_grad
 from gsorb_slam_tpu_torch.raster.instances import pack_raw_instances, rt_from_matrix
+from gsorb_slam_tpu_torch.raster.paired import (
+    pack_gt_pairs,
+    pair_bins,
+    tracking_loss_grad_paired,
+    tracking_pair_order,
+)
 from gsorb_slam_tpu_torch.raster.preprocess import preprocess
 from gsorb_slam_tpu_torch.raster.preprocess_kernel import preprocess_instances_kernel
 from gsorb_slam_tpu_torch.raster.types import RasterConfig
@@ -74,13 +83,19 @@ class TrackResult:
 
 
 def tracking_raster_config(rcfg: RasterConfig) -> RasterConfig:
-    """The tracking view of a raster config: ``track_tile_capacity`` and
-    ``track_chunk`` replace the render values where set (the tracking pack
-    and projection are dense over the capacity)."""
+    """The tracking view of a raster config (the JAX System's, ``slam/
+    system.py:340-363``): ``track_tile_capacity`` and ``track_chunk`` replace
+    the render values where set (the tracking pack and projection are dense
+    over the capacity), and ``paired`` bins 16x8 rect tiles (half-height
+    tiles; mapping and renders keep the square grid)."""
     if rcfg.track_tile_capacity:
         rcfg = dataclasses.replace(rcfg, tile_capacity=rcfg.track_tile_capacity)
     if rcfg.track_chunk:
         rcfg = dataclasses.replace(rcfg, chunk=rcfg.track_chunk)
+    if rcfg.paired:
+        if rcfg.exact_stop:
+            raise ValueError("paired tracking implements the fast stop rule only")
+        rcfg = dataclasses.replace(rcfg, tile_h=rcfg.tile // 2)
     return rcfg
 
 
@@ -117,7 +132,8 @@ def track_frame(
     """Optimize the camera pose of one frame against the current map.
 
     Runs on the device of the map's tensors. ``rcfg`` is the tracking view
-    (see :func:`tracking_raster_config`) and must use ``exact_stop=False``.
+    (see :func:`tracking_raster_config`); ``bins``, if given, are its bins
+    at ``T_cw_init`` in row-major tile order (paired tracking reorders them).
     ``rebin_iters`` rebuilds the tile bins and instance pack at the current
     pose at those iterations; ``None`` takes the config's, else the
     budget-adaptive default."""
@@ -143,6 +159,20 @@ def track_frame(
             gm.active, b,
         )
 
+    paired = rcfg.paired
+    perm = None  # the episode's pairing (paired tracking)
+    gt_tiles = None if paired else tile_gt_images(gt_color, gt_depth, cam, rcfg)
+
+    def episode(b: TileBins) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The pack, counts and gt tiles of one binning episode (the paired
+        gt follows the episode's pairing)."""
+        nonlocal perm
+        if not paired:
+            return build_raw(b), b.counts, gt_tiles
+        perm = tracking_pair_order(b, cam, rcfg)
+        b = pair_bins(b, perm)
+        return build_raw(b), b.counts, pack_gt_pairs(gt_color, gt_depth, cam, rcfg, perm)
+
     use_features = bool(matches.valid.any())
 
     def chi2_masked(T_cw: torch.Tensor, inliers: torch.Tensor) -> torch.Tensor:
@@ -155,10 +185,16 @@ def track_frame(
         with torch.enable_grad():
             T_cw = pose_to_matrix(q, t)
             screen = preprocess_instances_kernel(raw, rt_from_matrix(T_cw), cam, scale_modifier)
-            img_l1, dep_l1, d_screen = tracking_loss_grad(
-                screen.detach(), counts, gt4, cam, rcfg,
-                tcfg.im_weight, tcfg.depth_weight, tcfg.use_sur_depth,
-            )
+            if paired:
+                img_l1, dep_l1, d_screen = tracking_loss_grad_paired(
+                    screen.detach(), counts, gt4, cam, rcfg,
+                    tcfg.im_weight, tcfg.depth_weight, tcfg.use_sur_depth, tile_ids=perm,
+                )
+            else:
+                img_l1, dep_l1, d_screen = tracking_loss_grad(
+                    screen.detach(), counts, gt4, cam, rcfg,
+                    tcfg.im_weight, tcfg.depth_weight, tcfg.use_sur_depth,
+                )
             loss = img_l1 + dep_l1
             if use_features:
                 chi2_l = tcfg.feature_weight * chi2_masked(T_cw, inliers).sum()
@@ -171,8 +207,7 @@ def track_frame(
     with torch.no_grad():
         if bins is None:
             bins = build_bins(T_cw_init)
-        raw, counts = build_raw(bins), bins.counts
-        gt4 = tile_gt_images(gt_color, gt_depth, cam, rcfg)
+        raw, counts, gt4 = episode(bins)
 
     regate_iter = num_iters // 2  # feature_clear (src/Render.cc:1052)
     inliers = torch.ones_like(matches.valid)
@@ -185,8 +220,7 @@ def track_frame(
         if i > 0 and it < num_iters:
             # Rebin at the segment boundary, at the current pose.
             with torch.no_grad():
-                b = build_bins(pose_to_matrix(ps.quat, ps.trans))
-                raw, counts = build_raw(b), b.counts
+                raw, counts, gt4 = episode(build_bins(pose_to_matrix(ps.quat, ps.trans)))
         while it < seg_end:
             loss, gq, gt_ = value_and_grad(ps.quat, ps.trans, inliers, raw, counts, gt4)
             with torch.no_grad():

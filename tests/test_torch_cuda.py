@@ -23,6 +23,7 @@ from gsorb_slam_tpu_torch.raster.blend_kernels import (
     blend_forward_plain,
     gt_without_loss_edges,
     pack_instances,
+    tile_gt_images,
     tracking_loss_grad,
     tracking_loss_grad_plain,
 )
@@ -38,6 +39,15 @@ from gsorb_slam_tpu_torch.raster.flat_kernels import (
     render_flat,
 )
 from gsorb_slam_tpu_torch.raster.instances import pack_raw_instances, rt_from_matrix, screen_rows
+from gsorb_slam_tpu_torch.raster.paired import (
+    pack_gt_pairs,
+    pair_bins,
+    pair_gt_rows,
+    tracking_loss_grad_paired,
+    tracking_loss_grad_paired_plain,
+    tracking_pair_order,
+    unpack_gt_pairs,
+)
 from gsorb_slam_tpu_torch.raster.preprocess_kernel import (
     preprocess_bwd,
     preprocess_bwd_plain,
@@ -151,3 +161,67 @@ def test_k5_exact_stop_with_background(dev):
     color_p = render_output_from_tiles(out_p, CAM, cfg, bg, prep.radius).color
     (g_p,) = torch.autograd.grad((color_p * w).sum(), means)
     assert float((g_k - g_p).abs().max() / g_p.abs().max()) < 2e-2
+
+
+def _gt_images(params, cam, cfg, dev):
+    """A gt image pair: the scene rendered 1 cm to the side."""
+    T = torch.eye(4, device=dev)
+    T[0, 3] = 0.01
+    prep = preprocess(*params, T, cam)
+    bins = bin_gaussians(prep, cam, cfg)
+    out, _ = blend_forward_plain(pack_instances(prep, bins), bins.counts, cam, cfg)
+    rows = render_output_from_tiles(out, cam, cfg, 0.0, prep.radius)
+    depth = torch.where(rows.alpha > 0.5, rows.median_depth, torch.zeros_like(rows.alpha))
+    return rows.color.contiguous(), depth.contiguous()
+
+
+@pytest.mark.parametrize("use_sur", [True, False])
+def test_k7_matches_plain(dev, use_sur):
+    """K7 (exact stop) against its plain version, with the blended-depth
+    loss too (chip_smoke checks the median-depth loss)."""
+    params = _scene(dev)
+    cfg = dataclasses.replace(CFG, exact_stop=True)
+    prep = preprocess(*params, torch.eye(4, device=dev), CAM)
+    bins = bin_gaussians(prep, CAM, cfg)
+    screen = pack_instances(prep, bins)
+    gt4 = tile_gt_images(*_gt_images(params, CAM, cfg, dev), CAM, cfg)
+    img_k, dep_k, _ = tracking_loss_grad(screen, bins.counts, gt4, CAM, cfg, 0.7, 1.0, use_sur)
+    img_p, dep_p, _ = tracking_loss_grad_plain(screen, bins.counts, gt4, CAM, cfg, 0.7, 1.0,
+                                               use_sur)
+    torch.testing.assert_close(img_k + dep_k, img_p + dep_p, rtol=1e-3, atol=0)
+    gt4, _ = gt_without_loss_edges(screen, bins.counts, gt4, CAM, cfg)
+    n0 = _build.launches["fused_track_exact"]
+    _, _, g_k = tracking_loss_grad(screen, bins.counts, gt4, CAM, cfg, 0.7, 1.0, use_sur)
+    assert _build.launches["fused_track_exact"] == n0 + 1
+    _, _, g_p = tracking_loss_grad_plain(screen, bins.counts, gt4, CAM, cfg, 0.7, 1.0, use_sur)
+    torch.testing.assert_close(g_k, g_p, atol=8e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize("paired_sort", [True, False])
+def test_k8_matches_plain(dev, paired_sort):
+    """K8 under both pairings (chip_smoke checks the count-sorted one)."""
+    params = _scene(dev)
+    cfg = dataclasses.replace(CFG, tile_h=8, paired=True, paired_sort=paired_sort)
+    prep = preprocess(*params, torch.eye(4, device=dev), CAM)
+    bins = bin_gaussians(prep, CAM, cfg)
+    perm = tracking_pair_order(bins, CAM, cfg)
+    pb = pair_bins(bins, perm)
+    screen = pack_instances(prep, pb)
+    color, depth = _gt_images(params, CAM, CFG, dev)
+    gt = pack_gt_pairs(color, depth, CAM, cfg, perm)
+    for use_sur in (True, False):
+        img_k, dep_k, _ = tracking_loss_grad_paired(screen, pb.counts, gt, CAM, cfg, 0.7, 1.0,
+                                                    use_sur, tile_ids=perm)
+        img_p, dep_p, _ = tracking_loss_grad_paired_plain(screen, pb.counts, gt, CAM, cfg, 0.7,
+                                                          1.0, use_sur, tile_ids=perm)
+        torch.testing.assert_close(img_k + dep_k, img_p + dep_p, rtol=1e-3, atol=0)
+    gt_e, _ = gt_without_loss_edges(screen, pb.counts, unpack_gt_pairs(gt), CAM, cfg,
+                                    tile_ids=perm)
+    gt_e = pair_gt_rows(gt_e)
+    n0 = _build.launches["paired_track"]
+    _, _, g_k = tracking_loss_grad_paired(screen, pb.counts, gt_e, CAM, cfg, 0.7, 1.0, True,
+                                          tile_ids=perm)
+    assert _build.launches["paired_track"] == n0 + 1
+    _, _, g_p = tracking_loss_grad_paired_plain(screen, pb.counts, gt_e, CAM, cfg, 0.7, 1.0,
+                                                True, tile_ids=perm)
+    torch.testing.assert_close(g_k, g_p, atol=8e-4, rtol=2e-3)

@@ -45,6 +45,7 @@ from gsorb_slam_tpu_torch.raster.blend_kernels import (
     blend_forward_plain,
     gt_without_loss_edges,
     tile_gt_images,
+    tracking_blend,
     tracking_loss_grad,
     tracking_loss_grad_plain,
 )
@@ -239,10 +240,18 @@ def test_gt_without_loss_edges():
     assert bool((gt_e[:, 3, :10] == 0).all()) and n >= 120
 
 
-def test_k1_rejects_exact_stop():
-    """The exact-stop fused kernel (K7) is not ported: tracking refuses it."""
+def test_k1_rejects_exact_stop(tracking_inputs):
+    """K1 runs the fast stop rule only and takes no exact-stop input: with
+    ``exact_stop=True`` tracking goes to the exact fused kernel K7 instead
+    (its plain version on the CPU), whose blend never takes a pixel's T
+    below 1e-4."""
+    _, packed, counts, gt_color, gt_depth = tracking_inputs
+    cam = Camera(**CAM_KW)
     cfg = dataclasses.replace(RasterConfig(**CFG_KW), exact_stop=True)
-    x = torch.zeros((12, 16, 256))
-    with pytest.raises(NotImplementedError):
-        tracking_loss_grad(x, torch.zeros(12, dtype=torch.int32), torch.zeros((12, 4, 256)),
-                           Camera(**CAM_KW), cfg, 1.0, 1.0, True)
+    gt4 = tile_gt_images(_t(gt_color), _t(gt_depth), cam, cfg)
+    img, dep, grads = tracking_loss_grad(_t(packed), _t(counts), gt4, cam, cfg, 0.7, 1.0, True)
+    p_img, p_dep, p_grads = tracking_loss_grad_plain(_t(packed), _t(counts), gt4, cam, cfg,
+                                                     0.7, 1.0, True)
+    assert torch.equal(grads, p_grads) and float(img + dep) == float(p_img + p_dep)
+    out = tracking_blend(_t(packed), _t(counts), cam, cfg)
+    assert bool((out[:, 6] >= 1e-4).all())

@@ -16,8 +16,8 @@ Tolerances:
   the parameters within 2 lr x steps of each group (Adam's eps of 1e-15
   turns a gradient at rounding level into a step of +-lr).
 The frame of each step is JAX's draw, recomputed here and handed to the
-port's ``map_step``; the port's own ``map_window`` draws from a
-``torch.Generator`` and must reproduce itself bit for bit.
+port's ``map_step``; the port's ``map_window`` on the same draws must
+give that loop's map and losses bit for bit.
 """
 
 import dataclasses
@@ -406,15 +406,15 @@ def test_map_window_matches_jax(window_scene, n_frames, iters, seed):
                                    atol=2 * lr * iters, rtol=0, err_msg=k)
     assert int(tgm.adam_t) == int(jgm2.adam_t) == iters
 
-    # The port's own loop: frames drawn by a torch.Generator, reproducible.
-    runs = [M.map_window(_tmap(jgm), tfr, torch.Generator().manual_seed(5), cam, mcfg, cfg,
-                         num_iters=iters, chunk_budget=64) for _ in range(2)]
-    assert torch.equal(runs[0][1], runs[1][1])
-    for k in KEYS:
-        assert torch.equal(getattr(runs[0][0], k), getattr(runs[1][0], k)), k
+    # The port's map_window over the same draws is the loop above, bit for
+    # bit, on every call.
+    for gm_r, l_r in [M.map_window(_tmap(jgm), tfr, ks, cam, mcfg, cfg, chunk_budget=64)
+                      for _ in range(2)]:
+        assert l_r.tolist() == losses
+        for k in KEYS:
+            assert torch.equal(getattr(gm_r, k), getattr(tgm, k)), k
     with pytest.raises(ValueError, match="chunk budget"):
-        M.map_window(_tmap(jgm), tfr, torch.Generator(), cam, mcfg, cfg, num_iters=1,
-                     chunk_budget=4)
+        M.map_window(_tmap(jgm), tfr, [0], cam, mcfg, cfg, chunk_budget=4)
 
 
 def test_window_chunk_budget():
