@@ -62,7 +62,24 @@ Phases (any failed check makes the exit code non-zero):
     evaluation's renders, K7 = K8 = 0; frame times, and one more frame profiled; a second System
     over the first 4 frames bitwise equal;
 13. the System with ``exact_stop=True`` and with ``paired=True`` over the
-    first 5 frames: ATE < 2 cm, K7 (K8) = the tracking iterations, K1 = 0.
+    first 5 frames: ATE < 2 cm, K7 (K8) = the tracking iterations, K1 = 0;
+14. K6 (the per-tile blend backward) against its plain version on phase 2's
+    render bins under both stop rules: a seeded random cotangent on rows
+    0-4 and the final T with the gate-edge pixels left out, two launches
+    bitwise equal, and the render's parameter gradients through the pack and
+    ``preprocess`` (background 0.3) against the plain chain;
+15. the window-sharded mapping on a one-rank NCCL process group (from a
+    ``FileStore`` in a temporary directory: no network): phase 8's map after
+    its prune and densify, its 4-frame window, 100 ``parallel_window_step``
+    steps rotating over the frames. K3 = K6 = 100, K4 = K5 = 0, 100
+    ``all_reduce`` calls, loss down, window PSNR up by at least 1 dB, three
+    more calls bitwise equal (timed), one profiled; one frame's pack slot
+    table timed alone (the loop builds one per window frame);
+16. the tile-sharded tracking at world size 1: ``parallel_track_frame`` from
+    phase 5's initial pose over 200 iterations (K1 = K2f = K2b = 200) within
+    1e-5 of phase 5's pose, and K1 over the two strided halves of
+    ``strided_tile_perm(n_tiles, 2)`` against one unsharded launch (per-tile
+    loss and gradient rows bit for bit, summed loss within 1e-6).
 It prints a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -72,8 +89,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -292,9 +311,9 @@ def phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg) -> dict:
         blend_flat_forward,
         blend_flat_forward_plain,
         cotangent_without_gate_edges,
-        flat_pack_grad_aux,
         pack_instances_flat,
     )
+    from gsorb_slam_tpu_torch.raster.blend_kernels import flat_pack_grad_aux
     from gsorb_slam_tpu_torch.raster.preprocess import preprocess
     from gsorb_slam_tpu_torch.slam.mapping import window_chunk_budget
 
@@ -508,7 +527,8 @@ def phase_mapping(torch, checks, gm, cam, rcfg, dev) -> dict:
     profile_call(torch, run, min(call_s), "map_window call")
 
     layout = window_layouts(frames, gm1.capacity, cam, rcfg, budget)[0]
-    return dict(gm=gm1, layout=layout, pose=poses[0], n_iters=n_iters, launches=launches)
+    return dict(gm=gm1, layout=layout, pose=poses[0], n_iters=n_iters, launches=launches,
+                frames=frames, gts=gts, poses=poses)
 
 
 def phase_system(torch, checks, dev) -> dict:
@@ -652,6 +672,238 @@ def phase_system(torch, checks, dev) -> dict:
     return out
 
 
+def phase_blend_backward(torch, checks, gm, packed, bins_r, cam, rcfg) -> dict:
+    """Phase 14: K6 against its plain version on phase 2's render bins at the
+    identity pose, under both stop rules, with a seeded random cotangent on
+    rows 0-4 and the final T row and the gate-edge pixels left out; two
+    launches bitwise equal; the parameter gradients of the render through
+    the pack and ``preprocess`` (background 0.3) against the plain chain."""
+    from gsorb_slam_tpu_torch.raster.blend_kernels import (
+        blend,
+        blend_backward,
+        blend_backward_plain,
+        blend_forward,
+        pack_instances,
+        render_output_from_tiles,
+        tile_cotangent_without_gate_edges,
+    )
+    from gsorb_slam_tpu_torch.raster.preprocess import preprocess
+
+    counts = bins_r.counts
+    res = {}
+    for exact in (False, True):
+        cfg = dataclasses.replace(rcfg, exact_stop=exact)
+        with torch.no_grad():
+            out, chunk_t, last = blend_forward(packed, counts, cam, cfg)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(11)).to(out.device)
+        g[:, 5] = 0.0
+        g[:, 7] = 0.0
+        g, n_edge = tile_cotangent_without_gate_edges(packed, g, cam, cfg)
+        print(f"# K6 exact={int(exact)} check: {n_edge} of {g.shape[0] * g.shape[2]} pixels left "
+              f"out (an alpha within rounding of the 1/255 gate or the 0.99 clamp)", flush=True)
+        d_k = blend_backward(packed, counts, chunk_t, last, g, cam, cfg)
+        d_p = blend_backward_plain(packed, counts, g, cam, cfg, tile_batch=150)
+        torch.cuda.synchronize()
+        ratio = (d_k - d_p).abs() / (8e-4 + 2e-3 * d_p.abs())
+        if not checks.record(f"K6 exact={int(exact)} grads max |k-p|/(8e-4+2e-3|p|)",
+                             float(ratio.max()), 1.0):
+            t_i, r_i, k_i = np.unravel_index(int(ratio.argmax()), tuple(ratio.shape))
+            print(f"#   worst: tile {t_i} row {r_i} slot {k_i} kernel {float(d_k[t_i, r_i, k_i]):.6e}"
+                  f" plain {float(d_p[t_i, r_i, k_i]):.6e}; {int((ratio > 1).sum())} elements out",
+                  flush=True)
+        again = blend_backward(packed, counts, chunk_t, last, g, cam, cfg)
+        checks.record(f"K6 exact={int(exact)} two launches bitwise equal", 0.0, 0.0,
+                      ok=bool(torch.equal(again, d_k)))
+        if not exact:
+            res.update(k6_err=float((d_k - d_p).abs().max()), resid=(chunk_t, last), g=g)
+        del d_k, d_p, again, ratio
+
+    # Parameter gradients: the render's colour, depth, alpha and final T
+    # under seeded weights with a background of 0.3, through K3 / K6 and the
+    # sorted pack backward, against the plain blend backward on the same
+    # pack (the pack and preprocess by autograd).
+    names = ("means", "rgb", "quats", "logit_opacities", "log_scales")
+    gen = torch.Generator().manual_seed(12)
+    w = [torch.randn((cam.height, cam.width) + sh, generator=gen).to(packed.device)
+         for sh in ((3,), (), (), ())]
+
+    def loss_of(out, radius):
+        ro = render_output_from_tiles(out, cam, rcfg, 0.3, radius)
+        return sum((x * wi).sum() for x, wi in zip((ro.color, ro.depth, ro.alpha, ro.final_t), w))
+
+    def param_grads(use_kernels: bool):
+        ps = [getattr(gm, n).detach().clone().requires_grad_(True) for n in names]
+        with torch.enable_grad():
+            pr = preprocess(*ps, gm.active, torch.eye(4, device=packed.device), cam)
+            pk = pack_instances(pr, bins_r)
+            if use_kernels:
+                return torch.autograd.grad(loss_of(blend(pk, counts, cam, rcfg), pr.radius), ps)
+            leaf = torch.zeros((pk.shape[0], 8, g.shape[2]), device=pk.device, requires_grad=True)
+            (g_out,) = torch.autograd.grad(loss_of(leaf, pr.radius), leaf)
+            d = blend_backward_plain(pk.detach(), counts, g_out, cam, rcfg, tile_batch=150)
+            return torch.autograd.grad(pk, ps, d)
+
+    for n, a, b in zip(names, param_grads(True), param_grads(False)):
+        checks.record(f"render param grad ({n}) rel-err, K3/K6 vs plain", rel_err(a, b), 2e-2)
+    return res
+
+
+def phase_mesh(torch, checks, mp, cam, rcfg, dev) -> dict:
+    """Phase 15: the window-sharded mapping (``parallel_window_step``) on a
+    one-rank NCCL group, from phase 8's map after its prune and densify over
+    its 4-frame window."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.core.config import MappingConfig
+    from gsorb_slam_tpu_torch.parallel import mesh as PM
+    from gsorb_slam_tpu_torch.raster import render
+    from gsorb_slam_tpu_torch.raster.binning import TileBins
+    from gsorb_slam_tpu_torch.raster.blend_kernels import tile_pack_grad_aux
+    from gsorb_slam_tpu_torch.splat.gaussians import PARAM_NAMES
+
+    mcfg = MappingConfig()
+    n_iters = MAP_ITERS or mcfg.num_iters
+    mesh = PM.make_mesh()
+    frames = PM.shard_frames(mp["frames"], mesh)
+    print(f"# phase 15: mesh of {mesh.size} rank(s), {frames.colors.shape[0]} window frames "
+          f"on this rank, map capacity {mp['gm'].capacity}", flush=True)
+
+    def run():
+        gm = PM.replicate_map(mp["gm"], mesh)
+        aux = PM.window_pack_aux(frames, gm.capacity)
+        losses = []
+        with torch.no_grad():
+            for it in range(n_iters):
+                gm, loss = PM.parallel_window_step(gm, frames, mesh, cam, mcfg, rcfg,
+                                                   local_idx=it, pack_aux=aux)
+                losses.append(loss)
+        return gm, torch.stack(losses)
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    n_ar = mesh.collectives["all_reduce"]
+    t0 = time.perf_counter()
+    gm2, losses = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    n_ar = mesh.collectives["all_reduce"] - n_ar
+    print(f"# window-sharded mapping launches: {json.dumps(launches)}; all_reduce calls {n_ar}",
+          flush=True)
+    for name, want in (("blend_forward", n_iters), ("blend_backward", n_iters),
+                       ("blend_flat_fwd", 0), ("blend_flat_bwd", 0)):
+        checks.record(f"mesh mapping {name} launches == {want}", launches[name], want,
+                      ok=launches[name] == want)
+    checks.record(f"mesh mapping all_reduce calls == {n_iters}", n_ar, n_iters, ok=n_ar == n_iters)
+    finite = bool(torch.isfinite(losses).all()) and all(
+        bool(torch.isfinite(getattr(gm2, n)).all()) for n in PARAM_NAMES)
+    checks.record("mesh mapping outputs finite", 0.0, 0.0, ok=finite)
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    print(f"# mesh mapping loss: first 10 steps {first:.6f}, last 10 {last:.6f}; first call "
+          f"{first_s:.3f} s", flush=True)
+    checks.record("mesh mapping loss, last 10 below first 10", last - first, 0.0, ok=last < first)
+
+    def params(m):
+        return (m.means, m.rgb, m.quats, m.logit_opacities, m.log_scales, m.active)
+
+    with torch.no_grad():
+        before = [psnr(render(*params(mp["gm"]), P, cam, rcfg).color, c)
+                  for P, (c, _) in zip(mp["poses"], mp["gts"])]
+        after = [psnr(render(*params(gm2), P, cam, rcfg).color, c)
+                 for P, (c, _) in zip(mp["poses"], mp["gts"])]
+    gain = float(np.mean(after) - np.mean(before))
+    print(f"# mesh mapping window PSNR: before {', '.join(f'{v:.3f}' for v in before)}; after "
+          f"{', '.join(f'{v:.3f}' for v in after)} dB", flush=True)
+    checks.record("mesh mapping window mean PSNR gain (dB, at least)", gain, 1.0, ok=gain >= 1.0)
+
+    call_s, equal = [], True
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gm_t, l_t = run()
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t0)
+        equal &= all(torch.equal(getattr(gm_t, n), getattr(gm2, n)) for n in PARAM_NAMES)
+        equal &= bool(torch.equal(l_t, losses))
+    checks.record("mesh mapping reruns bitwise equal (3 calls)", 0.0, 0.0, ok=equal)
+    q25, q50, q75 = (float(v) / n_iters * 1e3 for v in np.quantile(call_s, (0.25, 0.5, 0.75)))
+    print(f"# parallel_window_step ms/step over 3 calls of {n_iters} steps: median {q50:.4f}, "
+          f"quartiles {q25:.4f} / {q75:.4f}; calls {', '.join(f'{v:.4f}' for v in call_s)} s",
+          flush=True)
+    # One frame's slot table, which the loop builds once per frame and not
+    # once per step (host clock: the build reads its width on the host).
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bins0 = TileBins(indices=frames.bins_indices[0], counts=frames.bins_counts[0],
+                     n_dropped=frames.bins_counts.new_zeros(()))
+    for _ in range(reps):
+        tile_pack_grad_aux(bins0, mp["gm"].capacity)
+    torch.cuda.synchronize()
+    print(f"# one window frame's pack slot table: {(time.perf_counter() - t0) / reps * 1e3:.4f} "
+          f"ms to build (wall)", flush=True)
+    profile_call(torch, run, min(call_s), "window-sharded mapping call")
+    return dict(mesh=mesh, launches=launches)
+
+
+def phase_mesh_tracking(torch, checks, mesh, gm, T_init, gt_color, gt_depth, res_main, screen,
+                        counts, gt4, cam, tcfg, rcfg_t) -> None:
+    """Phase 16: ``parallel_track_frame`` at world size 1 against phase 5's
+    ``track_frame``, and K1 over the two strided halves of the tile grid
+    against one unsharded launch."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.parallel.tracking import parallel_track_frame, strided_tile_perm
+    from gsorb_slam_tpu_torch.raster.blend_kernels import fused_track_launch
+    from gsorb_slam_tpu_torch.slam.tracking import FeatureMatches
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    n_ar = mesh.collectives["all_reduce"]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = parallel_track_frame(gm, T_init, gt_color, gt_depth,
+                                   FeatureMatches.empty(device=T_init.device), cam, tcfg, rcfg_t,
+                                   mesh, rebin_iters=REBINS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    n_ar = mesh.collectives["all_reduce"] - n_ar
+    print(f"# tile-sharded tracking launches: {json.dumps(launches)}; all_reduce calls {n_ar}; "
+          f"{wall:.3f} s ({wall / ITERS * 1e3:.4f} ms/iteration, first run)", flush=True)
+    for name in ("fused_track_fast", "preprocess_fwd", "preprocess_bwd"):
+        checks.record(f"mesh tracking {name} launches == {ITERS}", launches[name], ITERS,
+                      ok=launches[name] == ITERS)
+    checks.record(f"mesh tracking all_reduce calls == {ITERS}", n_ar, ITERS, ok=n_ar == ITERS)
+    d = float((res.T_cw - res_main.T_cw).abs().max())
+    bitwise = bool(torch.equal(res.T_cw, res_main.T_cw))
+    print(f"# mesh tracking pose vs track_frame: max-abs {d:.3e}, bitwise {bitwise}", flush=True)
+    checks.record("mesh tracking pose vs track_frame max-abs", d, 1e-5)
+
+    n_tiles = counts.shape[0]
+    perm, is_pad = strided_tile_perm(n_tiles, 2, device=counts.device)
+    im_w, depth_w = tcfg.im_weight, tcfg.depth_weight
+    with torch.no_grad():
+        loss_a, g_a = fused_track_launch(screen, counts, gt4, cam, rcfg_t, im_w, depth_w, True)
+        total, rows_eq, grads_eq = 0.0, True, True
+        half = perm.numel() // 2
+        for s_ in range(2):
+            tids = perm[s_ * half:(s_ + 1) * half].contiguous()
+            rows, pad = tids.long(), is_pad[s_ * half:(s_ + 1) * half]
+            cnt = torch.where(pad, torch.zeros_like(counts[rows]), counts[rows])
+            loss_s, g_s = fused_track_launch(
+                screen[rows].contiguous(), cnt, gt4[rows].contiguous(), cam, rcfg_t, im_w,
+                depth_w, True, tile_ids=tids)
+            live = ~pad
+            rows_eq &= bool(torch.equal(loss_s[live], loss_a[rows][live]))
+            grads_eq &= bool(torch.equal(g_s[live], g_a[rows][live]))
+            total += float(loss_s.sum())
+        full = float(loss_a.sum())
+    checks.record("K1 strided halves: per-tile loss rows bitwise equal to one launch", 0.0, 0.0,
+                  ok=rows_eq)
+    checks.record("K1 strided halves: gradient rows bitwise equal to one launch", 0.0, 0.0,
+                  ok=grads_eq)
+    checks.record("K1 strided halves: summed loss rel-err", abs(total - full) / abs(full), 1e-6)
+
+
 def profile_call(torch, fn, best_s: float, what: str) -> None:
     """One call of ``fn`` under torch.profiler: the kernels' device time, its
     share of the profiled call's wall time and of the best unprofiled call's
@@ -699,6 +951,8 @@ def main() -> int:
         render_binned,
     )
     from gsorb_slam_tpu_torch.raster.blend_kernels import (
+        blend_backward,
+        blend_backward_plain,
         blend_forward,
         blend_forward_plain,
         gt_without_loss_edges,
@@ -787,8 +1041,8 @@ def main() -> int:
     with torch.no_grad():
         for exact in (False, True):
             cfg = dataclasses.replace(rcfg, exact_stop=exact)
-            out_k, ct_k = blend_forward(packed_r, bins_r.counts, cam, cfg)
-            out_p, ct_p = blend_forward_plain(packed_r, bins_r.counts, cam, cfg)
+            out_k, ct_k, _ = blend_forward(packed_r, bins_r.counts, cam, cfg)
+            out_p, ct_p, _ = blend_forward_plain(packed_r, bins_r.counts, cam, cfg)
             torch.cuda.synchronize()
             worst = 0.0
             for name, rows, tol in (("color", slice(0, 3), 2e-3), ("depth", slice(3, 4), 5e-3),
@@ -965,6 +1219,22 @@ def main() -> int:
     # ---- 12-13. the System and its two kernel configurations ----
     sysres = phase_system(torch, checks, dev)
 
+    # ---- 14. K6 against its plain version ----
+    k6 = phase_blend_backward(torch, checks, gm, packed_r, bins_r, cam, rcfg)
+
+    # ---- 15-16. the multi-device path on a one-rank NCCL group ----
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            mesh_res = phase_mesh(torch, checks, mp, cam, rcfg, dev)
+            phase_mesh_tracking(torch, checks, mesh_res["mesh"], gm, T_init, gt_color, gt_depth,
+                                res, screen_k, counts_t, gt4, cam, tcfg, rcfg_t)
+        finally:
+            dist.destroy_process_group()
+
     with torch.no_grad():
         k1_ms = time_ms(torch, lambda: tracking_loss_grad(
             screen_k, counts_t, gt4, cam, rcfg_t, im_w, depth_w, True), 20)
@@ -985,6 +1255,13 @@ def main() -> int:
         k3_ms = time_ms(torch, lambda: blend_forward(packed_r, bins_r.counts, cam, rcfg), 20)
         k3_plain_ms = time_ms(torch, lambda: blend_forward_plain(
             packed_r, bins_r.counts, cam, rcfg), 2)
+        k6_ms = time_ms(torch, lambda: blend_backward(packed_r, bins_r.counts, *k6["resid"],
+                                                      k6["g"], cam, rcfg), 20)
+        k6_plain_ms = time_ms(torch, lambda: blend_backward_plain(
+            packed_r, bins_r.counts, k6["g"], cam, rcfg, tile_batch=150), 1)
+        k6_fill_ms = time_ms(torch, lambda: torch.zeros_like(packed_r), 20)
+        print(f"# K6's wrapper zero-fills its [T, 16, cap] gradient block before the launch "
+              f"(inside K6's time): {k6_fill_ms:.4f} ms alone", flush=True)
         # K4 / K5 at the mapping step's shapes: the identity window frame's
         # layout and the map mapping starts from.
         cb_m = mp["layout"].cbins
@@ -1056,6 +1333,13 @@ def main() -> int:
     b_k5, by_k5 = bound_ms(
         live_m * 10 * 4 + resid_m + n_tiles * 7 * px * 4 + live_m * 10 * 4,
         pairs_k4["to_last"] * EVAL_OPS_PER_PAIR + pairs_k4["applied"] * TRACK_BWD_APPLY_OPS_PER_PAIR)
+    # K6 reads the live instances' 10 blend rows, K3's residuals (chunk_t
+    # and the last applied slot) and six cotangent rows, and writes ten
+    # gradient rows per live instance, as K5; the rest of the block is the
+    # wrapper's zero fill (timed on its own above). Its pairs are K3's.
+    b_k6, by_k6 = bound_ms(
+        live_r * 10 * 4 + n_tiles * (n_chunks_r + 1 + 1 + 6) * px * 4 + live_r * 10 * 4,
+        pairs_k3["to_last"] * EVAL_OPS_PER_PAIR + pairs_k3["applied"] * TRACK_BWD_APPLY_OPS_PER_PAIR)
     print(f"# (pixel, instance) pairs: K7 {json.dumps(pairs_k7)}, K8 {json.dumps(pairs_k8)} "
           f"over {live_p:.0f} live rect-tile instances", flush=True)
     print(f"# (pixel, instance) pairs: K1 {json.dumps(pairs_k1)}, K3 {json.dumps(pairs_k3)}, "
@@ -1087,6 +1371,9 @@ def main() -> int:
         entry("K5 blend_flat_bwd", "gsorb_slam_tpu_torch/csrc/blend_flat.cu",
               "gsorb_slam_tpu/raster/pallas_raster.py:2014", mp["launches"]["blend_flat_bwd"],
               flat["k5_err"], k5_ms, k5_plain_ms, b_k5, by_k5),
+        entry("K6 blend_backward", "gsorb_slam_tpu_torch/csrc/blend_backward.cu",
+              "gsorb_slam_tpu/raster/pallas_raster.py:659", mesh_res["launches"]["blend_backward"],
+              k6["k6_err"], k6_ms, k6_plain_ms, b_k6, by_k6),
         entry("K7 fused_track_exact", "gsorb_slam_tpu_torch/csrc/fused_track.cu",
               "gsorb_slam_tpu/raster/pallas_raster.py:1435", sysres["fused_track_exact"],
               k7_err, k7_ms, k7_plain_ms, b_k7, by_k7),

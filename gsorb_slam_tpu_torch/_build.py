@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = (
-    "blend_flat.cu", "blend_forward.cu", "fused_track.cu", "preprocess_instances.cu",
+    "blend_backward.cu", "blend_flat.cu", "blend_forward.cu", "fused_track.cu",
+    "preprocess_instances.cu",
 )
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
@@ -48,6 +49,7 @@ launches: dict[str, int] = {
     "blend_forward": 0,  # K3
     "blend_flat_fwd": 0,  # K4
     "blend_flat_bwd": 0,  # K5
+    "blend_backward": 0,  # K6
     "fused_track_exact": 0,  # K7
     "paired_track": 0,  # K8
 }
@@ -66,7 +68,8 @@ _F = ctypes.c_float
 # K1, K7 and K8 (csrc/fused_track.cu) share one argument list.
 _TRACK_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]
 _SIGNATURES = {
-    "gsorb_blend_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gsorb_blend_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gsorb_blend_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gsorb_blend_flat_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gsorb_blend_flat_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gsorb_fused_track_fast": _TRACK_ARGS,

@@ -48,14 +48,13 @@
 // per-instance sums over the tile's pixels are K1's: warp shuffles, then
 // one shared-memory slab per warp, added in warp order. Every (chunk, slot)
 // belongs to one tile, so no float atomics are used and the gradients are
-// bitwise reproducible.
+// bitwise reproducible. K5's reverse walk is common.cuh's blend_backward_chunks,
+// shared with the per-tile backward K6 (csrc/blend_backward.cu).
 #include "common.cuh"
 
 using namespace gsorb;
 
 namespace {
-
-constexpr int BK = 64;  // instances per backward sub-chunk (K5)
 
 __global__ void __launch_bounds__(256) blend_flat_fwd_kernel(
     const float* __restrict__ packed, const int* __restrict__ tile_start,
@@ -130,105 +129,19 @@ __global__ void __launch_bounds__(256) blend_flat_bwd_kernel(
     const float* __restrict__ out, const float* __restrict__ gout,
     float* __restrict__ grads, int K, int tiles_x, int ts_x, int ts_y) {
   extern __shared__ float smem[];
-  float* attr = smem;                // [N_BLEND][BK]
-  float* slab = smem + N_BLEND * BK;  // [n_warps][N_GRAD][BK] per-warp sums
   const int t = blockIdx.x;
   const int p = threadIdx.x;
   const int px = blockDim.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
-  const int n_warps = px >> 5;
   const float pu = (float)((t % tiles_x) * ts_x + p % ts_x);
   const float pv = (float)((t / tiles_x) * ts_y + p / ts_x);
   const int c0 = tile_start[t];
   const int c1 = tile_start[t + 1];
-
-  const float* g = gout + (size_t)t * 8 * px;
-  const float g_r = g[0 * px + p], g_g = g[1 * px + p], g_b = g[2 * px + p];
-  const float g_d = g[3 * px + p], g_s = g[4 * px + p], g_t = g[6 * px + p];
-  const float t_final = out[(size_t)t * 8 * px + 6 * px + p];
-  const int last = last_in[(size_t)t * px + p];
-  float Tb = t_final;             // transmittance after the instance being visited
-  float suffix = t_final * g_t;   // final-T term + sum over later applied w * phi
-
-  for (int c = c1 - 1; c >= c0; --c) {
-    // T after chunk c is the next chunk's incoming T while the pixel was
-    // still blending there; otherwise nothing applied after chunk c and the
-    // running Tb already holds it.
-    if (c + 1 < c1) {
-      const float tn = chunk_t[(size_t)(c + 1) * px + p];
-      if (tn > 0.f) Tb = tn;
-    }
-    const int pos0 = (c - c0) * K;
-    if (!__syncthreads_or(last >= pos0)) continue;  // no pixel applied any of it
-    const float* pk = packed + (size_t)c * N_ATTR * K;
-    float* gr = grads + (size_t)c * N_ATTR * K;
-    for (int base = ((K + BK - 1) / BK - 1) * BK; base >= 0; base -= BK) {
-      const int kmax = min(BK, K - base);
-      if (!__syncthreads_or(last >= pos0 + base)) continue;  // also fences attr / slab
-      for (int i = p; i < N_BLEND * BK; i += px) {
-        const int r = i / BK;
-        const int kk = i - r * BK;
-        attr[i] = kk < kmax ? pk[(size_t)r * K + base + kk] : 0.f;
-      }
-      __syncthreads();
-      for (int k = kmax - 1; k >= 0; --k) {
-        float v[N_GRAD];
-#pragma unroll
-        for (int j = 0; j < N_GRAD; ++j) v[j] = 0.f;
-        bool has = false;
-        if (pos0 + base + k <= last) {
-          float d0, d1;
-          const float ca = attr[CA * BK + k], cb = attr[CB * BK + k], cc = attr[CC * BK + k];
-          const float op = attr[OP * BK + k];
-          const float power =
-              falloff_power(attr[MU * BK + k], attr[MV * BK + k], ca, cb, cc, pu, pv, &d0, &d1);
-          const float alpha = fminf(ALPHA_CLAMP, op * expf(power));
-          if (power <= 0.f && alpha >= MIN_ALPHA) {
-            const float one_m = 1.f - alpha;
-            const float Tp = Tb / one_m;
-            const float w = alpha * Tp;
-            const float phi = g_r * attr[CR * BK + k] + g_g * attr[CG * BK + k] +
-                              g_b * attr[CBL * BK + k] + g_d * attr[Z * BK + k] + g_s;
-            const float d_alpha = Tp * phi - suffix / one_m;
-            suffix += w * phi;
-            Tb = Tp;
-            const float dpow = alpha < ALPHA_CLAMP ? alpha * d_alpha : 0.f;
-            v[0] = -dpow * (ca * d0 + cb * d1);
-            v[1] = -dpow * (cc * d1 + cb * d0);
-            v[2] = -0.5f * dpow * d0 * d0;
-            v[3] = -dpow * d0 * d1;
-            v[4] = -0.5f * dpow * d1 * d1;
-            v[5] = dpow / fmaxf(op, 1e-12f);
-            v[6] = w * g_r;
-            v[7] = w * g_g;
-            v[8] = w * g_b;
-            v[9] = w * g_d;
-            has = true;
-          }
-        }
-        float* sw = slab + (size_t)warp * N_GRAD * BK + k;
-        if (__any_sync(FULL_MASK, has)) {
-#pragma unroll
-          for (int j = 0; j < N_GRAD; ++j) {
-            const float s = warp_sum(v[j]);
-            if (lane == 0) sw[j * BK] = s;
-          }
-        } else if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < N_GRAD; ++j) sw[j * BK] = 0.f;
-        }
-      }
-      __syncthreads();
-      for (int i = p; i < N_GRAD * kmax; i += px) {
-        const int r = i / kmax;
-        const int kk = i - r * kmax;
-        float s = 0.f;
-        for (int w = 0; w < n_warps; ++w) s += slab[((size_t)w * N_GRAD + r) * BK + kk];
-        gr[(size_t)r * K + base + kk] = s;
-      }
-    }
-  }
+  const float* go = gout + (size_t)t * 8 * px + p;
+  const float g[6] = {go[0 * px], go[1 * px], go[2 * px], go[3 * px], go[4 * px], go[6 * px]};
+  const size_t chunk = (size_t)N_ATTR * K;
+  blend_backward_chunks(packed + c0 * chunk, grads + c0 * chunk, chunk_t + (size_t)c0 * px,
+                        c1 - c0, K, chunk, K, pu, pv, last_in[(size_t)t * px + p],
+                        out[(size_t)t * 8 * px + 6 * px + p], g, smem);
 }
 
 }  // namespace
@@ -251,8 +164,7 @@ extern "C" int gsorb_blend_flat_bwd(const float* packed, const int* tile_start,
                                     const float* chunk_t, const int* last, const float* out,
                                     const float* gout, float* grads, int n_tiles, int K,
                                     int tiles_x, int ts_x, int ts_y, void* stream) {
-  const size_t smem =
-      ((size_t)N_BLEND * BK + (size_t)(ts_x * ts_y / 32) * N_GRAD * BK) * sizeof(float);
+  const size_t smem = blend_backward_smem(ts_x * ts_y);
   cudaError_t err = allow_smem(blend_flat_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0) {

@@ -5,8 +5,11 @@
 // [T, 16, cap] packed instances it writes the rows
 //   out[t] = (r, g, b, blended depth, alpha = sum w, median depth, final T, 0)
 // over the tile's pixels, and chunk_t[t, c] = the incoming transmittance of
-// chunk c (0 once the pixel is done), chunk_t[t, n_chunks] = final T, which
-// is the residual the per-tile backward (K6) consumes. exact != 0 gives the
+// chunk c (0 once the pixel is done), chunk_t[t, n_chunks] = final T. It
+// also writes last[t] = the slot (c * K + k) of each pixel's last applied
+// instance (-1 for none), which the TPU kernel does not: with chunk_t it is
+// the residual of the per-tile backward K6 (csrc/blend_backward.cu), whose
+// reverse walk starts there. exact != 0 gives the
 // CUDA-exact stop (the instance whose blend would cross T < 1e-4 is not
 // applied); exact == 0 the fast rule (an instance applies while its incoming
 // T >= 1e-4).
@@ -30,7 +33,8 @@ using namespace gsorb;
 
 __global__ void __launch_bounds__(256) blend_forward_kernel(
     const float* __restrict__ packed, const int* __restrict__ counts,
-    float* __restrict__ out, float* __restrict__ chunk_t, int cap, int K, int tiles_x,
+    float* __restrict__ out, float* __restrict__ chunk_t, int* __restrict__ last_out,
+    int cap, int K, int tiles_x,
     int ts_x, int ts_y, int exact) {
   extern __shared__ float attr[];  // [N_BLEND][K]
   const int t = blockIdx.x;
@@ -45,6 +49,7 @@ __global__ void __launch_bounds__(256) blend_forward_kernel(
   float* ct = chunk_t + (size_t)t * (n_chunks + 1) * px;
 
   float T = 1.f, Cr = 0.f, Cg = 0.f, Cb = 0.f, D = 0.f, S = 0.f, Med = 0.f;
+  int last = -1;
   bool done = false;
   bool alive = true;  // block-uniform: some pixel still accepts instances
   for (int c = 0; c < n_chunks; ++c) {
@@ -79,6 +84,7 @@ __global__ void __launch_bounds__(256) blend_forward_kernel(
       S += w;
       if (T > 0.5f) Med = z;
       T = Tn;
+      last = base + k;
       if (!exact && T < STOP_T) {
         done = true;
         break;
@@ -95,10 +101,11 @@ __global__ void __launch_bounds__(256) blend_forward_kernel(
   o[5 * px + p] = Med;
   o[6 * px + p] = T;
   o[7 * px + p] = 0.f;
+  last_out[(size_t)t * px + p] = last;
 }
 
 extern "C" int gsorb_blend_forward(const float* packed, const int* counts, float* out,
-                                   float* chunk_t, int n_tiles, int cap, int K,
+                                   float* chunk_t, int* last, int n_tiles, int cap, int K,
                                    int tiles_x, int ts_x, int ts_y, int exact,
                                    void* stream) {
   const size_t smem = (size_t)N_BLEND * K * sizeof(float);
@@ -106,7 +113,7 @@ extern "C" int gsorb_blend_forward(const float* packed, const int* counts, float
   if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0) {
     blend_forward_kernel<<<n_tiles, ts_x * ts_y, smem, (cudaStream_t)stream>>>(
-        packed, counts, out, chunk_t, cap, K, tiles_x, ts_x, ts_y, exact);
+        packed, counts, out, chunk_t, last, cap, K, tiles_x, ts_x, ts_y, exact);
   }
   return (int)cudaGetLastError();
 }

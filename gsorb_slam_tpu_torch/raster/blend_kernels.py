@@ -2,11 +2,16 @@
 of ``gsorb_slam_tpu/raster/pallas_raster.py`` for the tracking and render
 path).
 
-Two kernels live here, each beside a plain version of the same function:
+Three kernels live here, each beside a plain version of the same function:
 
 - **K3** :func:`blend_forward` (``csrc/blend_forward.cu``), replacing the
   TPU per-tile forward blend ``_fwd_kernel``. Plain version:
   :func:`blend_forward_plain`.
+- **K6** :func:`blend_backward` (``csrc/blend_backward.cu``), replacing its
+  backward ``_bwd_kernel``. Plain version: :func:`blend_backward_plain`
+  (``torch.autograd`` through the plain forward). :func:`blend` joins K3
+  and K6 in a ``torch.autograd.Function``, so :func:`blend_and_untile`, and
+  through it every per-tile render, is differentiable on CUDA.
 - **K1** / **K7** :func:`tracking_loss_grad` (``csrc/fused_track.cu``),
   replacing the TPU fused tracking kernels ``_fused_track_kernel_fast``
   (fast stop, K1) and ``_fused_track_kernel_exact`` (``exact_stop=True``,
@@ -17,7 +22,12 @@ Two kernels live here, each beside a plain version of the same function:
 A wrapper launches its kernel for a CUDA tensor (or raises: there is no
 fallback) and takes the plain version only for a tensor on the CPU.
 
-Both plain versions run the blend in :func:`blend_tiles`, which implements
+The pack gather's backward (:class:`PackAux`) sums each Gaussian's slots in
+a fixed order from a slot table, not with a float-atomic scatter
+(``index_add_`` adds with atomics on CUDA), so a differentiated render, and
+the map the multi-device mapping step writes, are bitwise reproducible.
+
+The plain versions run the blend in :func:`blend_tiles`, which implements
 the kernels' per-pixel stop rules exactly, so the on-card comparison is
 tight: the fast rule applies an instance while the pixel's incoming
 transmittance is >= 1e-4; the exact rule does not apply the instance whose
@@ -25,6 +35,8 @@ blend would take it below 1e-4.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -69,20 +81,91 @@ def attr_cols(prep: Preprocessed) -> torch.Tensor:
     return torch.cat([cols, cols.new_zeros((1, N_ATTR))], dim=0)
 
 
-def pack_instances(prep: Preprocessed, bins: TileBins) -> torch.Tensor:
+@dataclasses.dataclass
+class PackAux:
+    """Residuals of the pack gathers' backward (counterpart of
+    ``flat_pack_grad_aux``): the gaussian id of every slot (C for dead
+    slots) and ``table [C, L]``, the slots of each Gaussian in ascending
+    order (from a stable sort of the slots by id), padded with the slot
+    count (a zero row), L the most slots any Gaussian has."""
+
+    flat_idx: torch.Tensor  # [n_slots] int64
+    table: torch.Tensor  # [C, L] int64
+
+
+def flat_pack_grad_aux(indices: torch.Tensor, C: int) -> PackAux:
+    """Build :class:`PackAux` from slot indices (any shape, -1 dead) for a
+    map of C rows (one host read for L)."""
+    flat_idx = torch.where(indices < 0, torch.full_like(indices, C), indices).reshape(-1).long()
+    n = flat_idx.numel()
+    perm = torch.sort(flat_idx, stable=True).indices
+    sorted_ids = flat_idx[perm]
+    ids = torch.arange(C, device=indices.device)
+    starts = torch.searchsorted(sorted_ids, ids)
+    ends = torch.searchsorted(sorted_ids, ids, right=True)
+    L = max(int((ends - starts).max()) if C else 0, 1)
+    pos = starts[:, None] + torch.arange(L, device=indices.device)[None, :]
+    table = torch.where(pos < ends[:, None], perm[torch.clamp(pos, max=n - 1)],
+                        torch.full_like(pos, n))
+    return PackAux(flat_idx=flat_idx, table=table)
+
+
+def tile_pack_grad_aux(bins: TileBins, C: int) -> PackAux:
+    """:class:`PackAux` of the per-tile pack: the slots past each tile's
+    count are dead (``pack_instances`` reads the sentinel row there)."""
+    k = torch.arange(bins.indices.shape[1], device=bins.indices.device)
+    live = k[None, :] < bins.counts[:, None]
+    return flat_pack_grad_aux(torch.where(live, bins.indices, -1), C)
+
+
+def sorted_segment_sum(g: torch.Tensor, aux: PackAux) -> torch.Tensor:
+    """``d_cols [C + 1, 16]``: each Gaussian's slot rows of ``g [n_slots, 16]``
+    summed in a fixed order (one gather through ``aux.table`` and a sum
+    over its slots); the sentinel row C gets 0. Only the N_GRAD rows that
+    carry gradients are summed."""
+    gz = torch.cat([g[:, :N_GRAD], g.new_zeros((1, N_GRAD))], dim=0)
+    d = gz[aux.table].sum(dim=1)  # [C, N_GRAD]
+    out = g.new_zeros((aux.table.shape[0] + 1, g.shape[1]))
+    out[:-1, :N_GRAD] = d
+    return out
+
+
+class _RowsGatherSorted(torch.autograd.Function):
+    """``cols[aux.flat_idx]`` whose backward is :func:`sorted_segment_sum`."""
+
+    @staticmethod
+    def forward(ctx, cols, aux):
+        ctx.aux = aux
+        return cols[aux.flat_idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        return sorted_segment_sum(g.contiguous(), ctx.aux), None
+
+
+def pack_instances(
+    prep: Preprocessed, bins: TileBins, pack_aux: PackAux | None = None
+) -> torch.Tensor:
     """Gather per-tile instance attributes into ``[T, 16, cap]``.
 
     Padding entries (``bins.indices == -1`` or past the tile's count) read
     the zero sentinel row of :func:`attr_cols`, so dead slots blend with
-    opacity 0."""
+    opacity 0. When the attributes need a gradient, the gather's backward
+    is the fixed-order :func:`sorted_segment_sum` (``pack_aux``, built here
+    from ``bins`` if not given)."""
     T, cap = bins.indices.shape
     C = prep.depth.shape[0]
     cols = attr_cols(prep)
-    k = torch.arange(cap, device=bins.indices.device)
-    dead = (bins.indices < 0) | (k[None, :] >= bins.counts[:, None])
-    idx = torch.where(dead, torch.full_like(bins.indices, C), bins.indices)
-    rows = cols[idx.reshape(-1).long()].reshape(T, cap, N_ATTR)
-    return rows.transpose(1, 2).contiguous()
+    if pack_aux is None and torch.is_grad_enabled() and cols.requires_grad:
+        pack_aux = tile_pack_grad_aux(bins, C)
+    if pack_aux is not None:
+        rows = _RowsGatherSorted.apply(cols, pack_aux)
+    else:
+        k = torch.arange(cap, device=bins.indices.device)
+        dead = (bins.indices < 0) | (k[None, :] >= bins.counts[:, None])
+        idx = torch.where(dead, torch.full_like(bins.indices, C), bins.indices)
+        rows = cols[idx.reshape(-1).long()]
+    return rows.reshape(T, cap, N_ATTR).transpose(1, 2).contiguous()
 
 
 def tile_pixels(
@@ -200,53 +283,202 @@ def _check_tile_shape(cfg: RasterConfig) -> None:
         raise ValueError(f"the blend kernels need tile pixels <= 256, a multiple of 32; got {px}")
 
 
+def _tile_grid_pixels(packed: torch.Tensor, cam: Camera, cfg: RasterConfig):
+    ty, tx = tile_grid_shape(cam, cfg)
+    tile_ids = torch.arange(packed.shape[0], device=packed.device)
+    return tile_pixels(tile_ids, tx, cfg.tile_w_px, cfg.tile_h_px)
+
+
 def blend_forward_plain(
     packed: torch.Tensor,
     counts: torch.Tensor,
     cam: Camera,
     cfg: RasterConfig,
     pairs: dict[str, int] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3's plain version: ``(out [T, 8, px], chunk_t [T, n_chunks+1, px])``;
-    ``pairs`` as in :func:`blend_tiles`."""
-    ty, tx = tile_grid_shape(cam, cfg)
-    tile_ids = torch.arange(packed.shape[0], device=packed.device)
-    pu, pv = tile_pixels(tile_ids, tx, cfg.tile_w_px, cfg.tile_h_px)
-    return blend_tiles(packed, counts, pu, pv, cfg.chunk, cfg.exact_stop, False, pairs)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's plain version: ``(out [T, 8, px], chunk_t [T, n_chunks+1, px],
+    last [T, px])``; ``pairs`` as in :func:`blend_tiles`."""
+    pu, pv = _tile_grid_pixels(packed, cam, cfg)
+    return blend_tiles(packed, counts, pu, pv, cfg.chunk, cfg.exact_stop, False, pairs,
+                       with_last=True)
 
 
-def blend_forward(
-    packed: torch.Tensor, counts: torch.Tensor, cam: Camera, cfg: RasterConfig
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K3: the per-tile forward blend. CUDA tensors launch the kernel, CPU
-    tensors take :func:`blend_forward_plain`. Forward only: the kernel's
-    backward (K6) is not ported, so a CUDA input that requires grad raises."""
-    if not packed.is_cuda:
-        return blend_forward_plain(packed, counts, cam, cfg)
-    if torch.is_grad_enabled() and packed.requires_grad:
-        raise NotImplementedError("the blend backward (K6) is not ported to CUDA yet")
+def _tile_args(packed: torch.Tensor, counts: torch.Tensor, cam: Camera, cfg: RasterConfig):
     _check_tile_shape(cfg)
     ty, tx = tile_grid_shape(cam, cfg)
     n_tiles, _, cap = packed.shape
     K = min(cfg.chunk, cap)
     if n_tiles != ty * tx or cap % K:
         raise ValueError(f"packed {tuple(packed.shape)} does not fit the tile grid / chunk {K}")
-    px = cfg.tile_w_px * cfg.tile_h_px
-    n_chunks = cap // K
     dev = packed.device
     _build.check_tensor(packed, "packed", torch.float32, (n_tiles, N_ATTR, cap), dev)
     _build.check_tensor(counts, "counts", torch.int32, (n_tiles,), dev)
+    return n_tiles, tx, cap, K, cfg.tile_w_px * cfg.tile_h_px, dev
+
+
+def blend_forward(
+    packed: torch.Tensor,
+    counts: torch.Tensor,
+    cam: Camera,
+    cfg: RasterConfig,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3: the per-tile forward blend -> ``(out [T, 8, px], chunk_t
+    [T, n_chunks + 1, px], last [T, px])``; ``chunk_t`` and ``last`` (the
+    slot of each pixel's last applied instance, -1 for none) are K6's
+    residuals. CUDA tensors launch the kernel, CPU tensors take
+    :func:`blend_forward_plain`. Forward only: differentiate through
+    :func:`blend`."""
+    if not packed.is_cuda:
+        return blend_forward_plain(packed, counts, cam, cfg)
+    if torch.is_grad_enabled() and packed.requires_grad:
+        raise ValueError("blend_forward is forward only: differentiate through blend")
+    n_tiles, tx, cap, K, px, dev = _tile_args(packed, counts, cam, cfg)
+    n_chunks = cap // K
     out = torch.empty((n_tiles, 8, px), dtype=torch.float32, device=dev)
     chunk_t = torch.empty((n_tiles, n_chunks + 1, px), dtype=torch.float32, device=dev)
+    last = torch.empty((n_tiles, px), dtype=torch.int32, device=dev)
     lib = _build.library()
     _build.count_launch("blend_forward")
     err = lib.gsorb_blend_forward(
         packed.data_ptr(), counts.data_ptr(), out.data_ptr(), chunk_t.data_ptr(),
-        n_tiles, cap, K, tx, cfg.tile_w_px, cfg.tile_h_px, int(cfg.exact_stop),
-        _build.stream_handle(dev),
+        last.data_ptr(), n_tiles, cap, K, tx, cfg.tile_w_px, cfg.tile_h_px,
+        int(cfg.exact_stop), _build.stream_handle(dev),
     )
     _build.check(err, "blend_forward")
-    return out, chunk_t
+    return out, chunk_t, last
+
+
+def blend_backward_plain(
+    packed: torch.Tensor,  # [T, 16, cap]
+    counts: torch.Tensor,
+    g_out: torch.Tensor,  # [T, 8, px]
+    cam: Camera,
+    cfg: RasterConfig,
+    tile_batch: int | None = None,
+) -> torch.Tensor:
+    """K6's plain version: ``torch.autograd`` through the plain forward ->
+    ``grads [T, 16, cap]`` (rows 10-15 zero: the blend reads rows 0-9).
+    ``tile_batch`` differentiates that many tiles at a time (the tiles blend
+    independently), which bounds the memory the autograd graph holds at
+    full width (all tiles of a VGA frame at capacity 2048 take several GB)."""
+    pu, pv = _tile_grid_pixels(packed, cam, cfg)
+    n_tiles = packed.shape[0]
+    step = tile_batch or max(n_tiles, 1)
+    pt = packed.detach()
+    grads = torch.zeros_like(pt)
+    with torch.enable_grad():
+        for s in range(0, n_tiles, step):
+            sl = slice(s, s + step)
+            x = pt[sl].clone().requires_grad_(True)
+            out, _ = blend_tiles(x, counts[sl], pu[sl], pv[sl], cfg.chunk, cfg.exact_stop, False)
+            (grads[sl],) = torch.autograd.grad(out, x, g_out[sl])
+    return grads
+
+
+def blend_backward(
+    packed: torch.Tensor,  # [T, 16, cap]
+    counts: torch.Tensor,  # [T] int32
+    chunk_t: torch.Tensor,  # [T, n_chunks + 1, px] from K3
+    last: torch.Tensor,  # [T, px] from K3
+    g_out: torch.Tensor,  # [T, 8, px] cotangent of K3's out
+    cam: Camera,
+    cfg: RasterConfig,
+) -> torch.Tensor:
+    """K6: the per-tile backward -> ``grads [T, 16, cap]`` (rows d_mu, d_mv,
+    d_ca, d_cb, d_cc, d_op, d_r, d_g, d_b, d_z; rows 10-15 zero). ``chunk_t``
+    and ``last`` are K3's residuals (from :func:`blend_forward`); the
+    median row of ``g_out`` is ignored. CUDA tensors launch the kernel, CPU
+    tensors take :func:`blend_backward_plain` (which needs neither
+    residual)."""
+    if not packed.is_cuda:
+        return blend_backward_plain(packed, counts, g_out, cam, cfg)
+    n_tiles, tx, cap, K, px, dev = _tile_args(packed, counts, cam, cfg)
+    _build.check_tensor(chunk_t, "chunk_t", torch.float32, (n_tiles, cap // K + 1, px), dev)
+    _build.check_tensor(last, "last", torch.int32, (n_tiles, px), dev)
+    _build.check_tensor(g_out, "g_out", torch.float32, (n_tiles, 8, px), dev)
+    grads = torch.zeros((n_tiles, N_ATTR, cap), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    _build.count_launch("blend_backward")
+    err = lib.gsorb_blend_backward(
+        packed.data_ptr(), counts.data_ptr(), chunk_t.data_ptr(), last.data_ptr(),
+        g_out.data_ptr(), grads.data_ptr(), n_tiles, cap, K, tx, cfg.tile_w_px,
+        cfg.tile_h_px, _build.stream_handle(dev),
+    )
+    _build.check(err, "blend_backward")
+    return grads
+
+
+class _Blend(torch.autograd.Function):
+    """K3 forward, K6 backward."""
+
+    @staticmethod
+    def forward(ctx, packed, counts, cam, cfg):
+        out, chunk_t, last = blend_forward(packed, counts, cam, cfg)
+        ctx.save_for_backward(packed, counts, chunk_t, last)
+        ctx.cam, ctx.cfg = cam, cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        packed, counts, chunk_t, last = ctx.saved_tensors
+        grads = blend_backward(packed, counts, chunk_t, last, g_out.contiguous(), ctx.cam,
+                               ctx.cfg)
+        return grads, None, None, None
+
+
+def blend(
+    packed: torch.Tensor, counts: torch.Tensor, cam: Camera, cfg: RasterConfig
+) -> torch.Tensor:
+    """The differentiable per-tile blend -> ``out [T, 8, px]``: K3 / K6 for
+    CUDA tensors, autograd through the plain forward for CPU tensors. The
+    median row carries no gradient."""
+    if packed.is_cuda:
+        return _Blend.apply(packed, counts, cam, cfg)
+    return blend_forward_plain(packed, counts, cam, cfg)[0]
+
+
+def gate_edges(
+    packed: torch.Tensor, pu: torch.Tensor, pv: torch.Tensor, K: int, eps: float
+) -> torch.Tensor:
+    """``[T, px]`` bool: the pixels where some instance of the tile's
+    ``packed [T, 16, cap]`` has an alpha within ``eps`` (relative) of the
+    1/255 gate or of the 0.99 clamp (see
+    :func:`tile_cotangent_without_gate_edges`)."""
+    edge = torch.zeros_like(pu, dtype=torch.bool)
+    for c in range(packed.shape[2] // K):
+        pk = packed[:, :, c * K:(c + 1) * K]
+        row = lambda r: pk[:, r, None, :]  # [T, 1, K]
+        d0 = row(MU) - pu[..., None]
+        d1 = row(MV) - pv[..., None]
+        power = -0.5 * (row(CA) * d0 * d0 + row(CC) * d1 * d1) - row(CB) * d0 * d1
+        raw = row(OP) * torch.exp(power)
+        near = ((raw - MIN_ALPHA).abs() < eps * MIN_ALPHA) | ((raw - 0.99).abs() < eps * 0.99)
+        edge |= (near & (power <= 0.0)).any(dim=-1)
+    return edge
+
+
+def tile_cotangent_without_gate_edges(
+    packed: torch.Tensor,  # [T, 16, cap]
+    g_out: torch.Tensor,  # [T, 8, px]
+    cam: Camera,
+    cfg: RasterConfig,
+    eps: float = 1e-5,
+) -> tuple[torch.Tensor, int]:
+    """``g_out`` with zeros at the pixels where the blend is discontinuous
+    within rounding, and their number (the per-tile counterpart of
+    ``flat_kernels.cotangent_without_gate_edges``).
+
+    Those are the pixels where some instance of the tile has an alpha
+    within ``eps`` (relative) of the 1/255 gate or of the 0.99 clamp: a
+    kernel and its plain version (or the TPU kernel) may round to opposite
+    sides there, which switches that instance's contribution on or off and
+    moves the pixel's gradients by more than rounding. With a zero
+    cotangent the pixel sends no gradient in either version."""
+    pu, pv = _tile_grid_pixels(packed, cam, cfg)
+    edge = gate_edges(packed.detach(), pu, pv, min(cfg.chunk, packed.shape[2]), eps)
+    g = g_out.clone()
+    g.masked_fill_(edge[:, None, :], 0.0)
+    return g, int(edge.sum())
 
 
 def untile(a: torch.Tensor, cam: Camera, cfg: RasterConfig) -> torch.Tensor:
@@ -282,19 +514,27 @@ def blend_and_untile(
     bg: float = 0.0,
     radii: torch.Tensor | None = None,
 ) -> RenderOutput:
-    """Blend packed screen instances (K3 on CUDA) and reassemble the image."""
-    out, _ = blend_forward(packed, counts, cam, cfg)
+    """Blend packed screen instances (K3 on CUDA, differentiable through K6)
+    and reassemble the image."""
+    out = blend(packed, counts, cam, cfg)
     if radii is None:
         radii = torch.zeros((packed.shape[0],), device=packed.device)
     return render_output_from_tiles(out, cam, cfg, bg, radii)
 
 
 def render_kernel(
-    prep: Preprocessed, bins: TileBins, cam: Camera, cfg: RasterConfig, bg: float = 0.0
+    prep: Preprocessed,
+    bins: TileBins,
+    cam: Camera,
+    cfg: RasterConfig,
+    bg: float = 0.0,
+    pack_aux: PackAux | None = None,
 ) -> RenderOutput:
     """Pack the per-tile instances and blend them with K3 (or its plain
-    version on the CPU); the counterpart of ``render_pallas``."""
-    packed = pack_instances(prep, bins)
+    version on the CPU); the counterpart of ``render_pallas``. Differentiable
+    (K6 on CUDA; the pack's backward sums in a fixed order through
+    ``pack_aux``, built from ``bins`` when not given)."""
+    packed = pack_instances(prep, bins, pack_aux)
     return blend_and_untile(packed, bins.counts, cam, cfg, bg, radii=prep.radius)
 
 
@@ -400,7 +640,7 @@ def gt_without_loss_edges(
     return gt, int(edge.sum())
 
 
-def tracking_loss_grad(
+def fused_track_launch(
     packed: torch.Tensor,  # [T, 16, cap] screen instances
     counts: torch.Tensor,  # [T] int32
     gt_tiles: torch.Tensor,  # [T, 4, px] gt r, g, b, depth
@@ -410,18 +650,11 @@ def tracking_loss_grad(
     depth_weight: float,
     use_sur_depth: bool,
     tile_ids: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1 (fast stop) or K7 (``cfg.exact_stop``): one fused tracking
-    iteration -> ``(im_w * image_l1, depth_w * depth_l1, d_packed)``.
-
-    ``tile_ids`` maps each row of ``packed``/``gt_tiles`` to its global tile
-    id (the pixel origin); identity by default. CUDA tensors launch the
-    kernel, CPU tensors take :func:`tracking_loss_grad_plain`."""
-    if not packed.is_cuda:
-        return tracking_loss_grad_plain(
-            packed, counts, gt_tiles, cam, cfg, im_weight, depth_weight,
-            use_sur_depth, tile_ids,
-        )
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K1 (fast stop) or K7 (``cfg.exact_stop``) on CUDA
+    tensors -> ``(loss [T, 2], d_packed [T, 16, cap])``: the kernel's
+    per-tile rows of ``im_w * image_l1`` and ``depth_w * depth_l1`` and its
+    gradient block. :func:`tracking_loss_grad` sums the rows."""
     tile_ids, K = _tracking_args(packed, cfg, tile_ids)
     _check_tile_shape(cfg)
     ty, tx = tile_grid_shape(cam, cfg)
@@ -447,5 +680,33 @@ def tracking_loss_grad(
         _build.stream_handle(dev),
     )
     _build.check(err, name)
+    return loss, grads
+
+
+def tracking_loss_grad(
+    packed: torch.Tensor,  # [T, 16, cap] screen instances
+    counts: torch.Tensor,  # [T] int32
+    gt_tiles: torch.Tensor,  # [T, 4, px] gt r, g, b, depth
+    cam: Camera,
+    cfg: RasterConfig,
+    im_weight: float,
+    depth_weight: float,
+    use_sur_depth: bool,
+    tile_ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 (fast stop) or K7 (``cfg.exact_stop``): one fused tracking
+    iteration -> ``(im_w * image_l1, depth_w * depth_l1, d_packed)``.
+
+    ``tile_ids`` maps each row of ``packed``/``gt_tiles`` to its global tile
+    id (the pixel origin); identity by default. CUDA tensors launch the
+    kernel (:func:`fused_track_launch`), CPU tensors take
+    :func:`tracking_loss_grad_plain`."""
+    if not packed.is_cuda:
+        return tracking_loss_grad_plain(
+            packed, counts, gt_tiles, cam, cfg, im_weight, depth_weight,
+            use_sur_depth, tile_ids,
+        )
+    loss, grads = fused_track_launch(packed, counts, gt_tiles, cam, cfg, im_weight,
+                                     depth_weight, use_sur_depth, tile_ids)
     sums = loss.sum(0)
     return sums[0], sums[1], grads

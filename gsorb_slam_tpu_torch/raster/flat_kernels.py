@@ -21,15 +21,14 @@ tile. Two kernels live here, each beside its plain version:
 tensors and differentiates the plain forward for CPU tensors. A CUDA tensor
 reaches the kernels or raises; there is no fallback.
 
-The pack gather's backward (:class:`PackAux`) sums each Gaussian's slots in
-a fixed order from a per-episode slot table, not with a float-atomic
-scatter (``index_add_`` adds with atomics on CUDA), so the mapped map is
-bitwise reproducible.
+The pack gather's backward (``blend_kernels.PackAux``, built once per
+binning episode by ``blend_kernels.flat_pack_grad_aux``) sums each Gaussian's slots in
+a fixed order from a slot table, not with a float-atomic scatter
+(``index_add_`` adds with atomics on CUDA), so the mapped map is bitwise
+reproducible.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import torch
 
@@ -37,82 +36,24 @@ from gsorb_slam_tpu_torch import _build
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.raster.binning import ChunkBins, tile_grid_shape
 from gsorb_slam_tpu_torch.raster.blend_kernels import (
-    CA,
-    CB,
-    CC,
-    MU,
-    MV,
     N_ATTR,
-    N_GRAD,
-    OP,
+    PackAux,
     _check_tile_shape,
+    _RowsGatherSorted,
     attr_cols,
+    blend_backward_plain,
     blend_tiles,
+    gate_edges,
     render_output_from_tiles,
     tile_pixels,
 )
-from gsorb_slam_tpu_torch.raster.naive import MIN_ALPHA
 from gsorb_slam_tpu_torch.raster.preprocess import Preprocessed
 from gsorb_slam_tpu_torch.raster.types import RasterConfig, RenderOutput
 
 
 # ---------------------------------------------------------------------------
-# The pack gather and its sorted backward
+# The pack gather (its sorted backward is blend_kernels.PackAux's)
 # ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass
-class PackAux:
-    """Per-episode residuals of the pack gather's backward (counterpart of
-    ``flat_pack_grad_aux``): the gaussian id of every flat slot (C for dead
-    slots) and ``table [C, L]``, the flat slots of each Gaussian in
-    ascending order (from a stable sort of the slots by id), padded with
-    ``MC * K`` (a zero row), L the most slots any Gaussian has."""
-
-    flat_idx: torch.Tensor  # [MC * K] int64
-    table: torch.Tensor  # [C, L] int64
-
-
-def flat_pack_grad_aux(indices: torch.Tensor, C: int) -> PackAux:
-    """Build :class:`PackAux` from ``ChunkBins.indices`` for a map of C rows
-    (once per binning episode; one host read for L)."""
-    flat_idx = torch.where(indices < 0, torch.full_like(indices, C), indices).reshape(-1).long()
-    n = flat_idx.numel()
-    perm = torch.sort(flat_idx, stable=True).indices
-    sorted_ids = flat_idx[perm]
-    ids = torch.arange(C, device=indices.device)
-    starts = torch.searchsorted(sorted_ids, ids)
-    ends = torch.searchsorted(sorted_ids, ids, right=True)
-    L = max(int((ends - starts).max()) if C else 0, 1)
-    pos = starts[:, None] + torch.arange(L, device=indices.device)[None, :]
-    table = torch.where(pos < ends[:, None], perm[torch.clamp(pos, max=n - 1)],
-                        torch.full_like(pos, n))
-    return PackAux(flat_idx=flat_idx, table=table)
-
-
-def sorted_segment_sum(g: torch.Tensor, aux: PackAux) -> torch.Tensor:
-    """``d_cols [C + 1, 16]``: each Gaussian's slot rows of ``g [MC * K, 16]``
-    summed in a fixed order (one gather through ``aux.table`` and a sum
-    over its slots); the sentinel row C gets 0. Only the N_GRAD rows that
-    carry gradients are summed."""
-    gz = torch.cat([g[:, :N_GRAD], g.new_zeros((1, N_GRAD))], dim=0)
-    d = gz[aux.table].sum(dim=1)  # [C, N_GRAD]
-    out = g.new_zeros((aux.table.shape[0] + 1, g.shape[1]))
-    out[:-1, :N_GRAD] = d
-    return out
-
-
-class _RowsGatherSorted(torch.autograd.Function):
-    """``cols[aux.flat_idx]`` whose backward is :func:`sorted_segment_sum`."""
-
-    @staticmethod
-    def forward(ctx, cols, aux):
-        ctx.aux = aux
-        return cols[aux.flat_idx]
-
-    @staticmethod
-    def backward(ctx, g):
-        return sorted_segment_sum(g.contiguous(), ctx.aux), None
 
 
 def pack_instances_flat(
@@ -215,17 +156,8 @@ def blend_flat_backward_plain(
     n_tiles = ty * tx
     K = packed.shape[2]
     dense, counts, _ = _tile_layout(cbins, n_tiles)
-    pt = _per_tile(packed.detach(), dense)
-    pu, pv = tile_pixels(torch.arange(n_tiles, device=packed.device), tx,
-                         cfg.tile_w_px, cfg.tile_h_px)
-    step = tile_batch or max(n_tiles, 1)
-    d_tiles = torch.zeros_like(pt)
-    with torch.enable_grad():
-        for s in range(0, n_tiles, step):
-            sl = slice(s, s + step)
-            x = pt[sl].clone().requires_grad_(True)
-            out, _ = blend_tiles(x, counts[sl], pu[sl], pv[sl], K, cfg.exact_stop, False)
-            (d_tiles[sl],) = torch.autograd.grad(out, x, g_out[sl])
+    d_tiles = blend_backward_plain(_per_tile(packed.detach(), dense), counts, g_out, cam,
+                                   cfg, tile_batch)
     T, _, cap = d_tiles.shape
     per_chunk = d_tiles.reshape(T, N_ATTR, cap // K, K).transpose(1, 2)  # [T, n, 16, K]
     return _to_flat(per_chunk, cbins, n_tiles, K)
@@ -251,20 +183,10 @@ def cotangent_without_gate_edges(
     ty, tx = tile_grid_shape(cam, cfg)
     n_tiles = ty * tx
     K = packed.shape[2]
-    dense, _, n = _tile_layout(cbins, n_tiles)
-    pt = _per_tile(packed.detach(), dense)
+    dense, _, _ = _tile_layout(cbins, n_tiles)
     pu, pv = tile_pixels(torch.arange(n_tiles, device=packed.device), tx,
                          cfg.tile_w_px, cfg.tile_h_px)
-    edge = torch.zeros_like(pu, dtype=torch.bool)
-    for c in range(n):
-        pk = pt[:, :, c * K:(c + 1) * K]
-        row = lambda r: pk[:, r, None, :]  # [T, 1, K]
-        d0 = row(MU) - pu[..., None]
-        d1 = row(MV) - pv[..., None]
-        power = -0.5 * (row(CA) * d0 * d0 + row(CC) * d1 * d1) - row(CB) * d0 * d1
-        raw = row(OP) * torch.exp(power)
-        near = ((raw - MIN_ALPHA).abs() < eps * MIN_ALPHA) | ((raw - 0.99).abs() < eps * 0.99)
-        edge |= (near & (power <= 0.0)).any(dim=-1)
+    edge = gate_edges(_per_tile(packed.detach(), dense), pu, pv, K, eps)
     g = g_out.clone()
     g.masked_fill_(edge[:, None, :], 0.0)
     return g, int(edge.sum())

@@ -169,7 +169,7 @@ def blend_packed(
 ) -> RenderOutput:
     """Plain differentiable blend over the packed screen instances with
     ``cfg.exact_stop`` semantics; the counterpart of ``blend_packed_xla``."""
-    out, _ = blend_forward_plain(packed, counts, cam, cfg)
+    out = blend_forward_plain(packed, counts, cam, cfg)[0]
     radii = torch.zeros((packed.shape[0],), device=packed.device)
     return render_output_from_tiles(out, cam, cfg, bg, radii)
 
@@ -183,9 +183,9 @@ def render_instances(
     bg: float = 0.0,
     scale_modifier: float = 1.0,
 ) -> RenderOutput:
-    """Render from raw tile-instances at a pose: the projection kernel pair
-    (K2) and the forward blend (K3) on CUDA, their plain versions on the
-    CPU."""
+    """Render from raw tile-instances at a (differentiable) pose: the
+    projection kernel pair (K2) and the blend (K3, backward K6) on CUDA,
+    their plain versions on the CPU."""
     from gsorb_slam_tpu_torch.raster.preprocess_kernel import preprocess_instances_kernel
 
     screen = preprocess_instances_kernel(raw, rt_from_matrix(T_cw), cam, scale_modifier)

@@ -31,7 +31,8 @@ from gsorb_slam_tpu_torch.core.config import MappingConfig
 from gsorb_slam_tpu_torch.core.transforms import invert_se3, transform_points
 from gsorb_slam_tpu_torch.ops.losses import l1_mapping, ssim
 from gsorb_slam_tpu_torch.raster.binning import ChunkBins, TileBins, chunk_layout, tile_grid_shape
-from gsorb_slam_tpu_torch.raster.flat_kernels import PackAux, flat_pack_grad_aux, render_flat
+from gsorb_slam_tpu_torch.raster.blend_kernels import PackAux, flat_pack_grad_aux
+from gsorb_slam_tpu_torch.raster.flat_kernels import render_flat
 from gsorb_slam_tpu_torch.raster.preprocess import preprocess
 from gsorb_slam_tpu_torch.raster.types import RasterConfig, RenderOutput
 from gsorb_slam_tpu_torch.splat.gaussians import (

@@ -23,9 +23,19 @@ and the window's random fill, as in the JAX package, and a CPU
 ``torch.Generator`` seeded from ``seed`` for the mapping iterations' frame
 draws, all drawn through :meth:`System._mapping_draws`.
 
-The ORB frontend (``frontend="orb"``), loop closing, the monocular and
-stereo entry points and the multi-device mesh (``use_mesh=True``) are not
-ported yet and raise.
+Multi-device (``use_mesh=True``): one System per rank of an initialised
+``torch.distributed`` process group, every rank fed the same frames. With
+more than one rank, tracking is tile-sharded
+(``parallel.tracking.parallel_track_frame``) and the window mapping after
+the first frame is data-parallel (``parallel.mesh.parallel_window_step``:
+the window padded to a multiple of the ranks, one frame per rank per Adam
+step, one gradient ``all_reduce``); the paired tracking view is stripped
+(the sharded tracking shards square tiles). With one rank, or no process
+group, the System keeps the single-device path, as the JAX System does on
+one device.
+
+The ORB frontend (``frontend="orb"``), loop closing and the monocular and
+stereo entry points are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -38,11 +48,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gsorb_slam_tpu_torch import _build
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.core.config import SystemConfig, load_config
 from gsorb_slam_tpu_torch.interop import gaussian_map_from_numpy
+from gsorb_slam_tpu_torch.parallel import mesh as PM
+from gsorb_slam_tpu_torch.parallel import tracking as PT
 from gsorb_slam_tpu_torch.raster.binning import TileBins, bin_gaussians, tile_grid_shape
 from gsorb_slam_tpu_torch.raster.preprocess import preprocess
 from gsorb_slam_tpu_torch.raster.tiled import render_binned
@@ -116,17 +129,22 @@ class System:
     ):
         if frontend != "render":
             raise NotImplementedError(f"frontend={frontend!r}: only 'render' is ported")
-        if use_mesh:
-            raise NotImplementedError("use_mesh=True: the multi-device mapping is not ported")
         self.device = torch.device(device)
         self.cfg = config if isinstance(config, SystemConfig) else load_config(config)
         cc = self.cfg.camera
         self.cam = Camera(fx=cc.fx, fy=cc.fy, cx=cc.cx, cy=cc.cy, width=cc.width,
                           height=cc.height)
         self.rcfg = raster or System.default_raster_config(self.cam.width)
+        # The multi-device path, on only with more than one rank (the JAX
+        # System's len(jax.devices()) > 1).
+        self.mesh: Optional[PM.Mesh] = None
+        if use_mesh and dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            self.mesh = PM.make_mesh()
         # The tracking view: its own capacity and, with paired=True, 16x8
-        # rect tiles; mapping and renders keep the square grid.
-        self.rcfg_t = T.tracking_raster_config(self.rcfg)
+        # rect tiles (not with the mesh: it shards square tiles); mapping
+        # and renders keep the square grid.
+        self.rcfg_t = T.tracking_raster_config(
+            self.rcfg if self.mesh is None else dataclasses.replace(self.rcfg, paired=False))
         self.gm: GaussianMap = empty_map(self.cfg.mapping.max_gaussians, device=self.device)
         self.rng = np.random.default_rng(seed)
         self._map_gen = torch.Generator().manual_seed(seed)
@@ -221,11 +239,20 @@ class System:
                                  bg=self.cfg.mapping.background_color)
 
     def _track(self, T_init: np.ndarray, color, depth, matches, bins, n_iters: int):
+        """Track one frame; with the mesh tile-sharded (it bins its own
+        strips, ``bins`` is None)."""
         with torch.no_grad():
+            gm = prefix_view(self.gm, self._prefix_bucket())
+            if self.mesh is not None:
+                return PT.parallel_track_frame(
+                    gm, self._t(T_init), color, depth, matches, self.cam, self.cfg.tracking,
+                    self.rcfg_t, self.mesh, num_iters=n_iters,
+                    scale_modifier=self.cfg.mapping.scale_modifier,
+                )
             return T.track_frame(
-                prefix_view(self.gm, self._prefix_bucket()), self._t(T_init), color, depth,
-                matches, self.cam, self.cfg.tracking, self.rcfg_t, num_iters=n_iters,
-                bins=bins, scale_modifier=self.cfg.mapping.scale_modifier,
+                gm, self._t(T_init), color, depth, matches, self.cam, self.cfg.tracking,
+                self.rcfg_t, num_iters=n_iters, bins=bins,
+                scale_modifier=self.cfg.mapping.scale_modifier,
             )
 
     def _mapping_draws(self, n_iters: int, n_frames: int) -> list[int]:
@@ -236,7 +263,10 @@ class System:
 
     def _map(self, frames: M.WindowFrames, n_iters: int, init_mode: bool) -> torch.Tensor:
         """``n_iters`` mapping iterations over the live prefix; the map is
-        written back in place of ``self.gm``."""
+        written back in place of ``self.gm``. With the mesh, the window
+        mapping after the first frame is data-parallel instead."""
+        if self.mesh is not None and not init_mode:
+            return self._map_window_mesh(frames, n_iters)
         budget = M.window_chunk_budget(frames.bins_counts, self.rcfg.chunk)
         draws = self._mapping_draws(n_iters, frames.n_frames)
         with torch.no_grad():
@@ -246,6 +276,34 @@ class System:
             )
             self.gm = prefix_writeback(self.gm, gm_p)
         return losses
+
+    def _map_window_mesh(self, frames: M.WindowFrames, n_iters: int) -> torch.Tensor:
+        """Data-parallel mapping over the whole map (the JAX System's
+        ``_map_window_mesh``): pad the window to a multiple of the ranks with
+        copies of its first frame, shard it and run ``n_iters`` batched
+        steps, step ``it`` on each rank's frame ``it % local_count``. As in
+        the JAX package, the slots past ``n_frames`` (pool slot 0 at the
+        identity pose) are rendered like live frames."""
+        pad = (-frames.colors.shape[0]) % self.mesh.size
+        if pad:
+            rep = lambda a: torch.cat([a, a[:1].repeat((pad,) + (1,) * (a.ndim - 1))])
+            frames = M.WindowFrames(
+                colors=rep(frames.colors), depths=rep(frames.depths), poses=rep(frames.poses),
+                bins_indices=rep(frames.bins_indices), bins_counts=rep(frames.bins_counts),
+                n_frames=frames.n_frames,
+            )
+        gm = PM.replicate_map(self.gm, self.mesh)
+        local = PM.shard_frames(frames, self.mesh)
+        aux = PM.window_pack_aux(local, gm.capacity)
+        losses = []
+        with torch.no_grad():
+            for it in range(n_iters):
+                gm, loss = PM.parallel_window_step(gm, local, self.mesh, self.cam,
+                                                   self.cfg.mapping, self.rcfg, local_idx=it,
+                                                   pack_aux=aux)
+                losses.append(loss)
+        self.gm = gm
+        return torch.stack(losses)
 
     def _gather_window(self, win_ids: list[int], color, depth, T_cw: np.ndarray,
                        cur_bins: TileBins) -> M.WindowFrames:
@@ -374,7 +432,7 @@ class System:
             T_cw = np.asarray(forced_pose, np.float32)
             res = _ForcedTrackResult(T_cw=T_cw)
         else:
-            bins = self._bin_track(T_init)
+            bins = None if self.mesh is not None else self._bin_track(T_init)
             res = self._track(T_init, color, depth, matches, bins, cfg.tracking.num_iters)
             T_cw = res.T_cw.cpu().numpy()
         if not np.isfinite(T_cw).all():

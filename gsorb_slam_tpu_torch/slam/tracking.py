@@ -137,14 +137,6 @@ def track_frame(
     ``rebin_iters`` rebuilds the tile bins and instance pack at the current
     pose at those iterations; ``None`` takes the config's, else the
     budget-adaptive default."""
-    num_iters = int(num_iters or tcfg.num_iters)
-    if rebin_iters is None:
-        rebin_iters = tcfg.rebin_iters
-    if rebin_iters is None:
-        rebin_iters = default_rebin_iters(num_iters)
-    rebin_iters = tuple(r for r in rebin_iters if 0 < r < num_iters)
-    quat0, trans0 = matrix_to_pose(T_cw_init.detach())
-    ps = init_pose_state(quat0, trans0)
 
     def build_bins(T_cw: torch.Tensor) -> TileBins:
         prep = preprocess(
@@ -163,10 +155,13 @@ def track_frame(
     perm = None  # the episode's pairing (paired tracking)
     gt_tiles = None if paired else tile_gt_images(gt_color, gt_depth, cam, rcfg)
 
-    def episode(b: TileBins) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The pack, counts and gt tiles of one binning episode (the paired
-        gt follows the episode's pairing)."""
+    def episode(T_cw: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The pack, counts and gt tiles of the binning episode at ``T_cw``
+        (None: the initial pose, or ``bins`` if given); the paired gt follows
+        the episode's pairing."""
         nonlocal perm
+        b = bins if T_cw is None and bins is not None else build_bins(
+            T_cw_init if T_cw is None else T_cw)
         if not paired:
             return build_raw(b), b.counts, gt_tiles
         perm = tracking_pair_order(b, cam, rcfg)
@@ -204,10 +199,39 @@ def track_frame(
                 torch.autograd.backward(screen, d_screen)
         return loss, q.grad, t.grad
 
+    return pose_loop(T_cw_init, matches, cam, tcfg, num_iters, rebin_iters, episode,
+                     value_and_grad)
+
+
+def pose_loop(
+    T_cw_init: torch.Tensor,
+    matches: FeatureMatches,
+    cam: Camera,
+    tcfg: TrackingConfig,
+    num_iters: int | None,
+    rebin_iters: tuple[int, ...] | None,
+    episode,
+    value_and_grad,
+) -> TrackResult:
+    """The pose-Adam loop of :func:`track_frame` and the tile-sharded
+    ``parallel.tracking.parallel_track_frame``.
+
+    ``episode(T_cw)`` returns the operands of a binning episode at a pose
+    (``None``: the initial one); ``value_and_grad(quat, trans, inliers,
+    *operands)`` the loss and its quaternion and translation gradients.
+    Rebins at ``rebin_iters`` (``None``: the config's, else the
+    budget-adaptive default), re-gates the feature inliers halfway, keeps
+    the best-loss pose and stops early on ``early_stop_delta``."""
+    num_iters = int(num_iters or tcfg.num_iters)
+    if rebin_iters is None:
+        rebin_iters = tcfg.rebin_iters
+    if rebin_iters is None:
+        rebin_iters = default_rebin_iters(num_iters)
+    rebin_iters = tuple(r for r in rebin_iters if 0 < r < num_iters)
+    quat0, trans0 = matrix_to_pose(T_cw_init.detach())
+    ps = init_pose_state(quat0, trans0)
     with torch.no_grad():
-        if bins is None:
-            bins = build_bins(T_cw_init)
-        raw, counts, gt4 = episode(bins)
+        operands = episode(None)
 
     regate_iter = num_iters // 2  # feature_clear (src/Render.cc:1052)
     inliers = torch.ones_like(matches.valid)
@@ -220,9 +244,9 @@ def track_frame(
         if i > 0 and it < num_iters:
             # Rebin at the segment boundary, at the current pose.
             with torch.no_grad():
-                raw, counts, gt4 = episode(build_bins(pose_to_matrix(ps.quat, ps.trans)))
+                operands = episode(pose_to_matrix(ps.quat, ps.trans))
         while it < seg_end:
-            loss, gq, gt_ = value_and_grad(ps.quat, ps.trans, inliers, raw, counts, gt4)
+            loss, gq, gt_ = value_and_grad(ps.quat, ps.trans, inliers, *operands)
             with torch.no_grad():
                 if it == regate_iter:  # halfway inlier re-gate at the current pose
                     chi2_now = reprojection_chi2(pose_to_matrix(ps.quat, ps.trans), matches, cam)

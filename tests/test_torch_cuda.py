@@ -16,25 +16,27 @@ import torch
 from gsorb_slam_tpu_torch import _build
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.core.transforms import pose_to_matrix
-from gsorb_slam_tpu_torch.raster import RasterConfig, bin_gaussians, preprocess
+from gsorb_slam_tpu_torch.raster import RasterConfig, bin_gaussians, preprocess, render
 from gsorb_slam_tpu_torch.raster.binning import chunk_layout, tile_grid_shape
 from gsorb_slam_tpu_torch.raster.blend_kernels import (
+    blend_backward,
+    blend_backward_plain,
     blend_forward,
     blend_forward_plain,
     gt_without_loss_edges,
     pack_instances,
+    tile_cotangent_without_gate_edges,
     tile_gt_images,
     tracking_loss_grad,
     tracking_loss_grad_plain,
 )
-from gsorb_slam_tpu_torch.raster.blend_kernels import render_output_from_tiles
+from gsorb_slam_tpu_torch.raster.blend_kernels import flat_pack_grad_aux, render_output_from_tiles
 from gsorb_slam_tpu_torch.raster.flat_kernels import (
     blend_flat_backward,
     blend_flat_backward_plain,
     blend_flat_forward,
     blend_flat_forward_plain,
     cotangent_without_gate_edges,
-    flat_pack_grad_aux,
     pack_instances_flat,
     render_flat,
 )
@@ -91,9 +93,9 @@ def test_k3_matches_plain(dev):
     for exact in (False, True):
         cfg = dataclasses.replace(CFG, exact_stop=exact)
         n0 = _build.launches["blend_forward"]
-        out_k, ct_k = blend_forward(packed, bins.counts, CAM, cfg)
+        out_k, ct_k, _ = blend_forward(packed, bins.counts, CAM, cfg)
         assert _build.launches["blend_forward"] == n0 + 1
-        out_p, ct_p = blend_forward_plain(packed, bins.counts, CAM, cfg)
+        out_p, ct_p, _ = blend_forward_plain(packed, bins.counts, CAM, cfg)
         torch.testing.assert_close(out_k, out_p, atol=2e-3, rtol=0)
         torch.testing.assert_close(ct_k, ct_p, atol=2e-3, rtol=0)
 
@@ -110,7 +112,7 @@ def test_k2_and_k1_match_plain(dev):
     screen = preprocess_fwd(raw, rt, CAM)
     torch.testing.assert_close(screen, screen_rows(raw, rt, CAM), atol=1e-4, rtol=1e-5)
 
-    gt_out, _ = blend_forward_plain(pack_instances(prep, bins), bins.counts, CAM, CFG)
+    gt_out = blend_forward_plain(pack_instances(prep, bins), bins.counts, CAM, CFG)[0]
     # gt in the tile layout [T, 4, px]: rendered color, median depth where alpha > 0.5
     depth = torch.where(gt_out[:, 4:5] > 0.5, gt_out[:, 5:6], torch.zeros_like(gt_out[:, 5:6]))
     gt4 = torch.cat([gt_out[:, 0:3], depth], 1).contiguous()
@@ -169,7 +171,7 @@ def _gt_images(params, cam, cfg, dev):
     T[0, 3] = 0.01
     prep = preprocess(*params, T, cam)
     bins = bin_gaussians(prep, cam, cfg)
-    out, _ = blend_forward_plain(pack_instances(prep, bins), bins.counts, cam, cfg)
+    out = blend_forward_plain(pack_instances(prep, bins), bins.counts, cam, cfg)[0]
     rows = render_output_from_tiles(out, cam, cfg, 0.0, prep.radius)
     depth = torch.where(rows.alpha > 0.5, rows.median_depth, torch.zeros_like(rows.alpha))
     return rows.color.contiguous(), depth.contiguous()
@@ -225,3 +227,50 @@ def test_k8_matches_plain(dev, paired_sort):
     _, _, g_p = tracking_loss_grad_paired_plain(screen, pb.counts, gt_e, CAM, cfg, 0.7, 1.0,
                                                 True, tile_ids=perm)
     torch.testing.assert_close(g_k, g_p, atol=8e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_k6_matches_plain(dev, exact):
+    """K6 against its plain version under a seeded random cotangent (rows
+    0-4 and the final T), gate-edge pixels left out, and two launches
+    bitwise equal."""
+    params = _scene(dev)
+    cfg = dataclasses.replace(CFG, exact_stop=exact)
+    prep = preprocess(*params, torch.eye(4, device=dev), CAM)
+    bins = bin_gaussians(prep, CAM, cfg)
+    packed = pack_instances(prep, bins)
+    out, chunk_t, last = blend_forward(packed, bins.counts, CAM, cfg)
+    _, _, last_p = blend_forward_plain(packed, bins.counts, CAM, cfg)
+    assert float((last != last_p).float().mean()) < 1e-3
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(dev)
+    g[:, 5] = g[:, 7] = 0.0
+    g, _ = tile_cotangent_without_gate_edges(packed, g, CAM, cfg)
+    n0 = _build.launches["blend_backward"]
+    d_k = blend_backward(packed, bins.counts, chunk_t, last, g, CAM, cfg)
+    assert _build.launches["blend_backward"] == n0 + 1
+    d_p = blend_backward_plain(packed, bins.counts, g, CAM, cfg)
+    torch.testing.assert_close(d_k, d_p, atol=8e-4, rtol=2e-3)
+    assert torch.equal(blend_backward(packed, bins.counts, chunk_t, last, g, CAM, cfg), d_k)
+
+
+def test_render_differentiates_through_k6(dev):
+    """``render`` on CUDA tensors differentiates through K3 / K6 (it raised
+    before K6 was ported): parameter gradients within 2e-2 of the CPU plain
+    chain's, and a second backward bitwise equal (the pack's sorted
+    backward)."""
+    params = _scene(dev)
+    names = ("means", "rgb", "quats", "logit_opacities", "log_scales")
+    w = torch.rand((CAM.height, CAM.width, 3), generator=torch.Generator().manual_seed(4))
+
+    def grads(device):
+        ps = [p.detach().to(device).clone().requires_grad_(True) for p in params[:5]]
+        out = render(*ps, params[5].to(device), torch.eye(4, device=device), CAM, CFG, bg=0.3)
+        loss = (out.color * w.to(device)).sum() + out.depth.sum() + 0.5 * out.alpha.sum()
+        return torch.autograd.grad(loss, ps)
+
+    n0 = _build.launches["blend_backward"]
+    g_k = grads(dev)
+    assert _build.launches["blend_backward"] == n0 + 1
+    for n, a, b in zip(names, g_k, grads("cpu")):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) < 2e-2, n
+    assert all(torch.equal(a, b) for a, b in zip(g_k, grads(dev)))

@@ -32,6 +32,7 @@ from gsorb_slam_tpu.raster.pallas_raster import flat_pack_grad_aux as jflat_pack
 from gsorb_slam_tpu.raster.pallas_raster import render_pallas_flat
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.raster.binning import TileBins, chunk_layout
+from gsorb_slam_tpu_torch.raster.blend_kernels import flat_pack_grad_aux, sorted_segment_sum
 from gsorb_slam_tpu_torch.raster.flat_kernels import (
     blend_flat,
     blend_flat_backward,
@@ -39,10 +40,8 @@ from gsorb_slam_tpu_torch.raster.flat_kernels import (
     blend_flat_forward,
     blend_flat_forward_plain,
     cotangent_without_gate_edges,
-    flat_pack_grad_aux,
     pack_instances_flat,
     render_flat,
-    sorted_segment_sum,
 )
 from gsorb_slam_tpu_torch.raster.preprocess import Preprocessed
 from gsorb_slam_tpu_torch.raster.types import RasterConfig

@@ -160,11 +160,11 @@ def test_k3_plain_matches_pallas(rng, exact):
         np.testing.assert_allclose(getattr(to, k).numpy(), np.asarray(getattr(jo, k)),
                                    atol=tol, err_msg=k)
     # chunk_t: incoming T per chunk (0 once done), final T last.
-    out, chunk_t = blend_forward_plain(packed, _t(bins.counts), cam, tcfg)
+    out, chunk_t, _ = blend_forward_plain(packed, _t(bins.counts), cam, tcfg)
     assert chunk_t.shape == (12, 256 // 64 + 1, 256)
     np.testing.assert_array_equal(chunk_t[:, -1].numpy(), out[:, 6].numpy())
     assert bool((chunk_t[:, 0] == 1.0).all())
-    w_out, w_ct = blend_forward(packed, _t(bins.counts), cam, tcfg)
+    w_out, w_ct, _ = blend_forward(packed, _t(bins.counts), cam, tcfg)
     assert torch.equal(w_out, out) and torch.equal(w_ct, chunk_t)
 
 
@@ -230,7 +230,7 @@ def test_gt_without_loss_edges():
     packed[:, 5] = 0.9
     packed[:, 6:10] = torch.as_tensor(rng.uniform(0.2, 1, (12, 4, 256)), dtype=torch.float32)
     counts = torch.full((12,), 256, dtype=torch.int32)
-    out, _ = blend_forward_plain(packed, counts, cam, cfg)
+    out = blend_forward_plain(packed, counts, cam, cfg)[0]
     gt = torch.cat([out[:, 0:3] + 0.5, out[:, 3:4] + 0.5], 1)
     far = (out[:, 4] - 0.99).abs() >= 1e-5
     gt_e, n = gt_without_loss_edges(packed, counts, gt, cam, cfg)

@@ -94,12 +94,15 @@ def test_l1_tracking_matches_jax(rng):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, imports without jax or
+    """Every module of the port (``parallel/`` included), and chip_smoke.py,
+    imports without jax or
     the JAX package, and without PyYAML or OpenCV (the machine with the card
     has neither)."""
     names = [m.name for m in pkgutil.walk_packages(
         gsorb_slam_tpu_torch.__path__, "gsorb_slam_tpu_torch.")]
     assert "gsorb_slam_tpu_torch.slam.tracking" in names
+    assert {"gsorb_slam_tpu_torch.parallel.mesh", "gsorb_slam_tpu_torch.parallel.tracking"} <= set(
+        names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
