@@ -79,7 +79,22 @@ Phases (any failed check makes the exit code non-zero):
     phase 5's initial pose over 200 iterations (K1 = K2f = K2b = 200) within
     1e-5 of phase 5's pose, and K1 over the two strided halves of
     ``strided_tile_perm(n_tiles, 2)`` against one unsharded launch (per-tile
-    loss and gradient rows bit for bit, summed loss within 1e-6).
+    loss and gradient rows bit for bit, summed loss within 1e-6);
+17. K9 (the ablation copy of K1: K1's iteration over exactly 2 chunks per
+    tile, no stop, parts switchable) against its plain version on phase 4's
+    tracking pack: the ``full`` variant's loss (1e-3 relative) and gradient
+    rows with the loss-edge pixels of the no-stop blend left out (8e-4 +
+    2e-3 |p|), two launches bitwise equal, ``fwd``'s per-tile loss rows
+    bitwise equal to ``full``'s, every variant launched and finite; then K9's
+    main path, ``profiling.profile_fused_ablate``'s ``main`` at the bench
+    tracking view (every variant, K1 beside them);
+18. the profilers by their ``main`` at the bench scene's width, each cut for
+    time: ``profile_track`` (50 iterations, 2 timed frames per variant),
+    ``profile_map_full`` (20 mapping iterations per variant, 2 timed calls),
+    ``profile_map_iter``, ``profile_raster``, ``profile_fused``,
+    ``profile_paired_parts``, ``profile_gather`` (their defaults) and
+    ``profile_mapping_quality`` (3 QVGA frames per ablation, the four
+    ablations); each must return finite numbers, and each prints its lines.
 It prints a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -97,26 +112,10 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and f32 (non-tensor) FLOP/s.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-# f32 operations (an FMA counts 2) per (pixel, instance) pair, counted from
-# the kernels' arithmetic. Every evaluated pair: falloff 11, power test 1,
-# exp 1, opacity scale 1, clamp 1, alpha gate 1 -> 16. Every applied pair,
-# forward: weight 1, transmittance 2, five accumulations 9, median test 2,
-# stop test 1 -> 15. Every applied pair, tracking backward: T rebuild 2,
-# weight 1, phi 7, d_alpha 3, suffix 3, d_power 2, ten gradient terms 25,
-# their pixel sums 10 -> 53; the backward also evaluates the falloff again
-# (16) for every pair up to the pixel's last applied instance; the mapping
-# backward (K5) spends the same 53 per applied pair (its phi adds the alpha
-# cotangent, which its pixel sums do not carry). Per instance
-# of the projection: ~160 (K2f) and, for a reverse-mode adjoint, ~3x that
-# (K2b, only for instances whose cotangent is not zero).
-EVAL_OPS_PER_PAIR = 16
-BLEND_APPLY_OPS_PER_PAIR = 15
-TRACK_BWD_APPLY_OPS_PER_PAIR = 53
-PROJ_OPS_PER_INSTANCE = 160
-PROJ_ADJ_OPS_PER_INSTANCE = 480
+# The card's peaks, the f32 operations per (pixel, instance) pair and per
+# projected instance that the bounds charge, and the timers and profiler
+# call: gsorb_slam_tpu_torch/profiling/common.py.
+
 # Raw rows the pose adjoint reads (mean 3, world covariance 6, live 1) and
 # the screen rows whose cotangent moves the pose (u, v, conic 3, depth).
 POSE_RAW_ROWS = 10
@@ -187,26 +186,11 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(torch, fn, reps: int) -> float:
-    """Device time per call of ``fn`` by CUDA events. A sleep kernel ahead
-    of the timed run lets the host queue every launch first, so host-side
-    wrapper overhead does not open gaps between them."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    """Device time per call of ``fn`` by CUDA events (``profiling.common.time_ms``:
+    a sleep kernel ahead of each run, the best of 3 runs of ``reps`` calls)."""
+    from gsorb_slam_tpu_torch.profiling.common import time_ms as time_calls
 
-
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return time_calls(fn, torch.device(DEVICE), reps)
 
 
 def rel_err(a, b) -> float:
@@ -904,32 +888,132 @@ def phase_mesh_tracking(torch, checks, mesh, gm, T_init, gt_color, gt_depth, res
     checks.record("K1 strided halves: summed loss rel-err", abs(total - full) / abs(full), 1e-6)
 
 
-def profile_call(torch, fn, best_s: float, what: str) -> None:
-    """One call of ``fn`` under torch.profiler: the kernels' device time, its
-    share of the profiled call's wall time and of the best unprofiled call's
-    (the profiler slows the host, not the kernels), and the kernels that
-    take the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def phase_ablation(torch, checks, screen, gt4, cam, rcfg_t, im_w, depth_w) -> dict:
+    """Phase 17: K9 against its plain version on phase 4's tracking pack,
+    then K9's main path (``profile_fused_ablate``'s ``main``)."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.profiling import profile_fused_ablate
+    from gsorb_slam_tpu_torch.raster.blend_kernels import (
+        ABLATE_VARIANTS,
+        ablate_view,
+        fused_track_ablate_launch,
+        gt_without_loss_edges,
+        tracking_loss_grad_ablate,
+        tracking_loss_grad_ablate_plain,
+    )
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    def kernel(gt, use_sur, variant="full"):
+        return tracking_loss_grad_ablate(screen, gt, cam, rcfg_t, im_w, depth_w, use_sur,
+                                         variant=variant)
+
+    def plain(gt, use_sur):
+        return tracking_loss_grad_ablate_plain(screen, gt, cam, rcfg_t, im_w, depth_w, use_sur)
+
+    with torch.no_grad():
+        for use_sur in (True, False):
+            img_k, dep_k, _ = kernel(gt4, use_sur)
+            img_p, dep_p, _ = plain(gt4, use_sur)
+            lk, lp = float(img_k + dep_k), float(img_p + dep_p)
+            checks.record(f"K9 full use_sur={int(use_sur)} loss rel-err", abs(lk - lp) / abs(lp),
+                          1e-3)
+        view, counts_f = ablate_view(screen, rcfg_t)
+        gt_e, n_edge = gt_without_loss_edges(view, counts_f, gt4, cam, rcfg_t, stop=False)
+        print(f"# K9 gradient check: {n_edge} of {gt4.shape[0] * gt4.shape[2]} pixels left out "
+              f"(loss discontinuous within rounding)", flush=True)
+        _, _, g_k = kernel(gt_e, True)
+        _, _, g_p = plain(gt_e, True)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    if busy_ms > 0:
-        print(f"# profiled {what}: {wall_ms:.3f} ms wall, {busy_ms:.3f} ms of kernels; "
-              f"device busy {busy_ms / wall_ms:.4f} of the profiled call, "
-              f"{busy_ms / (best_s * 1e3):.4f} of the best unprofiled call", flush=True)
-        for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"#   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
-                  f"{e.key[:90]}", flush=True)
-    else:
-        print(f"# profiled {what}: the profiler recorded no device time (not measured)",
-              flush=True)
+        ratio = (g_k - g_p).abs() / (8e-4 + 2e-3 * g_p.abs())
+        if not checks.record("K9 full grads max |k-p|/(8e-4+2e-3|p|)", float(ratio.max()), 1.0):
+            t_i, r_i, k_i = np.unravel_index(int(ratio.argmax()), tuple(ratio.shape))
+            print(f"#   worst: tile {t_i} row {r_i} slot {k_i} kernel "
+                  f"{float(g_k[t_i, r_i, k_i]):.6e} plain {float(g_p[t_i, r_i, k_i]):.6e}; "
+                  f"{int((ratio > 1).sum())} elements out of tolerance", flush=True)
+        err = float((g_k - g_p).abs().max())
+        launch = {v: fused_track_ablate_launch(screen, gt_e, cam, rcfg_t, im_w, depth_w, True, v)
+                  for v in ABLATE_VARIANTS}
+        again = fused_track_ablate_launch(screen, gt_e, cam, rcfg_t, im_w, depth_w, True, "full")
+        checks.record("K9 full two launches bitwise equal (loss rows and gradients)", 0.0, 0.0,
+                      ok=bool(torch.equal(again[0], launch["full"][0])
+                              and torch.equal(again[1], launch["full"][1])
+                              and torch.equal(launch["full"][1], g_k)))
+        checks.record("K9 fwd loss rows bitwise equal to full's, gradients zero", 0.0, 0.0,
+                      ok=bool(torch.equal(launch["fwd"][0], launch["full"][0])
+                              and not launch["fwd"][1].any()))
+        finite = [v for v, (lo, g) in launch.items()
+                  if bool(torch.isfinite(lo).all()) and bool(torch.isfinite(g).all())]
+        checks.record(f"K9 variants launched with finite outputs ({len(ABLATE_VARIANTS)})",
+                      len(finite), len(ABLATE_VARIANTS), ok=len(finite) == len(ABLATE_VARIANTS))
+        plain_ms = time_ms(torch, lambda: plain(gt4, True), 2)
+        del launch, again, g_k, g_p, ratio
+
+    # K9's main path: the ablation table at the bench tracking view.
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    table = profile_fused_ablate.main([])
+    torch.cuda.synchronize()
+    launches = _build.launches["fused_track_ablate"]
+    print(f"# K9 main path (profile_fused_ablate) launches: {json.dumps(dict(_build.launches))}",
+          flush=True)
+    checks.record("K9 launched on its main path", launches, 1, ok=launches >= 1)
+    ms = [r["ms"] for r in table["variants"].values()]
+    checks.record("K9 ablation table: every variant timed, finite", 0.0, 0.0,
+                  ok=len(ms) == len(ABLATE_VARIANTS) and all(math.isfinite(m) for m in ms))
+    print(f"# K9 ablation table: {json.dumps(table)}", flush=True)
+    return dict(err=err, plain_ms=plain_ms, launches=launches, table=table)
+
+
+def phase_profilers(torch, checks) -> dict:
+    """Phase 18: the profilers by their ``main``, each cut for time (see
+    the module docstring); each must return finite numbers."""
+    import importlib
+
+    from gsorb_slam_tpu_torch import _build
+
+    runs = {
+        "profile_track": ["--runs", "2"],
+        "profile_map_full": ["--iters", "20", "--runs", "2"],
+        "profile_map_iter": [],
+        "profile_raster": [],
+        "profile_fused": [],
+        "profile_paired_parts": [],
+        "profile_gather": [],
+        "profile_mapping_quality": ["--frames", "3", "--ablate", "base,freshbins,lr2,lrhalf"],
+    }
+
+    def finite(d) -> bool:
+        if isinstance(d, dict):
+            return all(finite(v) for v in d.values())
+        if isinstance(d, (list, tuple)):
+            return all(finite(v) for v in d)
+        if isinstance(d, float):
+            return math.isfinite(d)
+        return True
+
+    out = {}
+    for name, argv in runs.items():
+        print(f"# phase 18: {name} {' '.join(argv)}", flush=True)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = importlib.import_module(f"gsorb_slam_tpu_torch.profiling.{name}").main(argv)
+        torch.cuda.synchronize()
+        print(f"# {name}: {time.perf_counter() - t0:.1f} s; launches "
+              f"{json.dumps({k: v for k, v in _build.launches.items() if v})}", flush=True)
+        print(f"# {name} result: {json.dumps(res)}", flush=True)
+        checks.record(f"{name} returned finite numbers on the card", 0.0, 0.0,
+                      ok=res["device"] == "cuda" and finite(res))
+        out[name] = res
+    return out
+
+
+def profile_call(torch, fn, best_s: float, what: str) -> None:
+    """One call of ``fn`` under torch.profiler (``profiling.common.profile_call``):
+    the kernels' device time, its share of the profiled call's wall time and
+    of the best unprofiled call's, and the kernels that take the most."""
+    from gsorb_slam_tpu_torch.profiling.common import profile_call as profiled, profile_lines
+
+    for line in profile_lines(profiled(fn, torch.device(DEVICE), best_s * 1e3), what):
+        print(line, flush=True)
 
 
 def main() -> int:
@@ -992,6 +1076,14 @@ def main() -> int:
         FeatureMatches,
         track_frame,
         tracking_raster_config,
+    )
+    from gsorb_slam_tpu_torch.profiling.common import (
+        BLEND_APPLY_OPS_PER_PAIR,
+        EVAL_OPS_PER_PAIR,
+        PROJ_ADJ_OPS_PER_INSTANCE,
+        PROJ_OPS_PER_INSTANCE,
+        TRACK_BWD_APPLY_OPS_PER_PAIR,
+        bound_ms,
     )
     from gsorb_slam_tpu_torch.splat.gaussians import add_points, empty_map
 
@@ -1235,6 +1327,12 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
 
+    # ---- 17. K9 against its plain version, then its ablation table ----
+    k9 = phase_ablation(torch, checks, screen_k, gt4, cam, rcfg_t, im_w, depth_w)
+
+    # ---- 18. the profilers ----
+    phase_profilers(torch, checks)
+
     with torch.no_grad():
         k1_ms = time_ms(torch, lambda: tracking_loss_grad(
             screen_k, counts_t, gt4, cam, rcfg_t, im_w, depth_w, True), 20)
@@ -1380,6 +1478,10 @@ def main() -> int:
         entry("K8 paired_track", "gsorb_slam_tpu_torch/csrc/fused_track.cu",
               "gsorb_slam_tpu/raster/paired.py:446", sysres["paired_track"],
               k8_err, k8_ms, k8_plain_ms, b_k8, by_k8),
+        entry("K9 fused_track_ablate (full)", "gsorb_slam_tpu_torch/csrc/fused_track.cu",
+              "scripts/profile_fused_ablate.py:255", k9["launches"], k9["err"],
+              k9["table"]["variants"]["full"]["ms"], k9["plain_ms"],
+              k9["table"]["bound_ms"]["full"]["ms"], k9["table"]["bound_ms"]["full"]["by"]),
     ]
     for k in kernels:
         print(f"# {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "

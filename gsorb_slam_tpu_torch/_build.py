@@ -52,6 +52,7 @@ launches: dict[str, int] = {
     "blend_backward": 0,  # K6
     "fused_track_exact": 0,  # K7
     "paired_track": 0,  # K8
+    "fused_track_ablate": 0,  # K9, every variant
 }
 
 _lock = threading.Lock()
@@ -65,7 +66,9 @@ ptxas_report: list[str] = []
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# K1, K7 and K8 (csrc/fused_track.cu) share one argument list.
+# K9's variants, one entry point each (csrc/fused_track.cu).
+ABLATE_VARIANTS = ("full", "fwd", "noexp", "noreduce", "min", "half2")
+# K1, K7, K8 and K9's variants share one argument list.
 _TRACK_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]
 _SIGNATURES = {
     "gsorb_blend_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -75,6 +78,7 @@ _SIGNATURES = {
     "gsorb_fused_track_fast": _TRACK_ARGS,
     "gsorb_fused_track_exact": _TRACK_ARGS,
     "gsorb_paired_track": _TRACK_ARGS,
+    **{f"gsorb_fused_track_ablate_{v}": _TRACK_ARGS for v in ABLATE_VARIANTS},
     "gsorb_preprocess_fwd": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     "gsorb_preprocess_bwd": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     "gsorb_preprocess_blocks": [ctypes.c_longlong],

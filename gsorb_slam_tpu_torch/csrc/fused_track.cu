@@ -11,7 +11,10 @@
 //     the exact branch of tracking_loss_grad (:1433-1482);
 //   K8 gsorb_paired_track      <EXACT = false, TILES = 2>
 //     replaces raster/paired.py:_paired_track_kernel (:173), launched by
-//     tracking_loss_grad_paired (:406).
+//     tracking_loss_grad_paired (:406);
+//   K9 gsorb_fused_track_ablate_<variant> <EXACT = false, TILES = 1, ABL>
+//     replaces scripts/profile_fused_ablate.py:_kernel (:60, launched at
+//     :255), the profiling copy of K1 (see "K9" below).
 //
 // Contract per tile row t (global tile id tile_ids[t], which sets the pixel
 // origin):
@@ -63,12 +66,81 @@
 // bitwise reproducible. The backward stages BK = 64 instances at a time to
 // keep the slabs at 20 KB. Each tile owns its [16, cap] gradient block, so no
 // global atomics are needed.
+//
+// K9, the ablation copy of K1 (timing only, except "full" and the loss rows
+// of "fwd"): the template's third parameter ABL is a bit set of switches,
+// 0 for K1, K7 and K8, whose code `if constexpr` keeps as it is. Every K9
+// variant sets ABL_FIXED: each tile walks exactly ABLATE_CHUNKS chunks,
+// slots [0, ABLATE_CHUNKS K), whatever its count (dead slots read the
+// pack's zero row, so their alpha is 0), with no transmittance stop, so
+// every variant evaluates the same pairs. Its gradient rows at and past
+// ABLATE_CHUNKS K are zero. The other switches turn parts off:
+//   ABL_NOBWD    the forward and the loss rows only; the gradient block is 0;
+//   ABL_NOEXP    each expf (forward and backward) becomes one FMA,
+//                1 + power / 5.5, which crosses 0 where exp crosses 1/255
+//                at op = 1, so about as many pairs pass the gate;
+//   ABL_NOREDUCE each per-instance sum over the tile's pixels (the warp
+//                shuffles, the per-warp slabs and their ordered adds) becomes
+//                one lane's own value;
+//   ABL_HALF2    the forward falloff and alpha of two instances per step in
+//                __half2 (offsets clamped to +-64 px so the products stay
+//                finite); the blend itself stays float32.
+// With no stop a pixel's T falls through float32's range (0.8^512 ~ 1e-50),
+// and the backward's rebuild of T by division from the final T would give 0
+// for every instance in front. So the forward records the anchor, the last
+// applied slot whose outgoing T is still >= 1e-30, and that T. The backward
+// still evaluates every pair after the anchor, with T taken as 0 there (their
+// weights are below 1e-30), and from the anchor back rebuilds T by division
+// from the recorded T. The error this leaves is below 1e-30 times a
+// cotangent.
+#include <cuda_fp16.h>
+
 #include "common.cuh"
 
 using namespace gsorb;
 
 constexpr int BK = 64;        // instances per backward sub-chunk
 constexpr int MAX_WARPS = 8;  // 256 threads per block
+
+// K9's switches (see the header) and its fixed walk.
+constexpr int ABL_FIXED = 1;
+constexpr int ABL_NOBWD = 2;
+constexpr int ABL_NOEXP = 4;
+constexpr int ABL_NOREDUCE = 8;
+constexpr int ABL_HALF2 = 16;
+constexpr int ABLATE_CHUNKS = 2;
+constexpr float ANCHOR_T = 1e-30f;
+
+// exp(power), or its stand-in under ABL_NOEXP.
+template <int ABL>
+__device__ __forceinline__ float gauss(float power) {
+  if constexpr ((ABL & ABL_NOEXP) != 0) {
+    return fmaf(power, 1.f / 5.5f, 1.f);
+  } else {
+    return expf(power);
+  }
+}
+
+// ABL_HALF2: the falloff exponents and alphas of instances k and k + 1 of
+// the staged rows attr [N_BLEND][K] at pixel (pu, pv), in __half2.
+__device__ __forceinline__ void half2_alpha(const float* __restrict__ attr, int K, int k,
+                                            float pu, float pv, float2* power, float2* alpha) {
+  auto off = [](float x) { return fminf(fmaxf(x, -64.f), 64.f); };
+  const __half2 d0 = __floats2half2_rn(off(attr[MU * K + k] - pu), off(attr[MU * K + k + 1] - pu));
+  const __half2 d1 = __floats2half2_rn(off(attr[MV * K + k] - pv), off(attr[MV * K + k + 1] - pv));
+  const __half2 ca = __floats2half2_rn(attr[CA * K + k], attr[CA * K + k + 1]);
+  const __half2 cb = __floats2half2_rn(attr[CB * K + k], attr[CB * K + k + 1]);
+  const __half2 cc = __floats2half2_rn(attr[CC * K + k], attr[CC * K + k + 1]);
+  const __half2 op = __floats2half2_rn(attr[OP * K + k], attr[OP * K + k + 1]);
+  const __half2 h = __float2half2_rn(0.5f);
+  __half2 s = __hmul2(__hmul2(h, ca), __hmul2(d0, d0));
+  s = __hfma2(__hmul2(h, cc), __hmul2(d1, d1), s);
+  s = __hfma2(cb, __hmul2(d0, d1), s);
+  const __half2 pw = __hneg2(s);
+  const __half2 a = __hmin2(__float2half2_rn(ALPHA_CLAMP), __hmul2(op, h2exp(pw)));
+  *power = __half22float2(pw);
+  *alpha = __half22float2(a);
+}
 
 // Copies the N_BLEND attribute rows of slots [base, base + K) of one tile's
 // packed block into attr [N_BLEND][K], with the tile's threads
@@ -93,12 +165,13 @@ __device__ __forceinline__ void stage_rows_padded(const float* __restrict__ pk, 
   }
 }
 
-template <bool EXACT, int TILES>
+template <bool EXACT, int TILES, int ABL = 0>
 __global__ void __launch_bounds__(256) fused_track_kernel(
     const float* __restrict__ packed, const int* __restrict__ counts,
     const int* __restrict__ tile_ids, const float* __restrict__ gt,
     float* __restrict__ grads, float* __restrict__ loss, int cap, int K, int tiles_x,
     int ts_x, int ts_y, float im_w, float depth_w, int use_sur) {
+  constexpr bool FIXED = (ABL & ABL_FIXED) != 0;  // K9
   extern __shared__ float smem[];
   __shared__ float red[2][MAX_WARPS];
 
@@ -118,7 +191,7 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
   const int tg = tile_ids[t];
   const float pu = (float)((tg % tiles_x) * ts_x + p % ts_x);
   const float pv = (float)((tg / tiles_x) * ts_y + p / ts_x);
-  const int count = min(max(counts[t], 0), cap);
+  const int count = FIXED ? ABLATE_CHUNKS * K : min(max(counts[t], 0), cap);
   // The other tile of a K8 block; the block walks the longer tile's chunks.
   const int other = TILES == 1 ? count : min(max(counts[t + 1 - 2 * half], 0), cap);
   const int n_live = (max(count, other) + K - 1) / K;
@@ -129,6 +202,8 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
   bool done = false;
   int last = -1;  // index of this pixel's last applied instance
   int c_end = 0;  // chunks the block entered (block-uniform)
+  int anchor = -1;       // K9: the last applied slot whose outgoing T >= ANCHOR_T,
+  float T_anchor = 0.f;  // and that T
   for (int c = 0; c < n_live; ++c) {
     if (__syncthreads_count(!done) == 0) break;  // also fences the last chunk's reads
     const int base = c * K;
@@ -137,32 +212,65 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
     __syncthreads();
     c_end = c + 1;
     if (done) continue;
-    for (int k = 0; k < kmax; ++k) {
-      float d0, d1;
-      const float power = falloff_power(attr[MU * K + k], attr[MV * K + k],
-                                        attr[CA * K + k], attr[CB * K + k],
-                                        attr[CC * K + k], pu, pv, &d0, &d1);
-      if (power > 0.f) continue;
-      const float alpha = fminf(ALPHA_CLAMP, attr[OP * K + k] * expf(power));
-      if (alpha < MIN_ALPHA) continue;
-      const float Tn = T * (1.f - alpha);
-      if (EXACT && Tn < STOP_T) {
-        done = true;
-        break;
+    if constexpr ((ABL & ABL_HALF2) != 0) {
+      for (int k = 0; k < kmax; k += 2) {
+        float2 pw, al;
+        half2_alpha(attr, K, k, pu, pv, &pw, &al);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float alpha = h ? al.y : al.x;
+          if ((h ? pw.y : pw.x) > 0.f || alpha < MIN_ALPHA) continue;
+          const float Tn = T * (1.f - alpha);
+          const float w = alpha * T;
+          const float z = attr[Z * K + k + h];
+          Cr += w * attr[CR * K + k + h];
+          Cg += w * attr[CG * K + k + h];
+          Cb += w * attr[CBL * K + k + h];
+          D += w * z;
+          S += w;
+          if (T > 0.5f && Tn <= 0.5f) Med = z;
+          T = Tn;
+          last = base + k + h;
+          if (T >= ANCHOR_T) {
+            anchor = last;
+            T_anchor = T;
+          }
+        }
       }
-      const float w = alpha * T;
-      const float z = attr[Z * K + k];
-      Cr += w * attr[CR * K + k];
-      Cg += w * attr[CG * K + k];
-      Cb += w * attr[CBL * K + k];
-      D += w * z;
-      S += w;
-      if (EXACT ? T > 0.5f : (T > 0.5f && Tn <= 0.5f)) Med = z;
-      T = Tn;
-      last = base + k;
-      if (!EXACT && T < STOP_T) {
-        done = true;
-        break;
+    } else {
+      for (int k = 0; k < kmax; ++k) {
+        float d0, d1;
+        const float power = falloff_power(attr[MU * K + k], attr[MV * K + k],
+                                          attr[CA * K + k], attr[CB * K + k],
+                                          attr[CC * K + k], pu, pv, &d0, &d1);
+        if (power > 0.f) continue;
+        const float alpha = fminf(ALPHA_CLAMP, attr[OP * K + k] * gauss<ABL>(power));
+        if (alpha < MIN_ALPHA) continue;
+        const float Tn = T * (1.f - alpha);
+        if (EXACT && Tn < STOP_T) {
+          done = true;
+          break;
+        }
+        const float w = alpha * T;
+        const float z = attr[Z * K + k];
+        Cr += w * attr[CR * K + k];
+        Cg += w * attr[CG * K + k];
+        Cb += w * attr[CBL * K + k];
+        D += w * z;
+        S += w;
+        if (EXACT ? T > 0.5f : (T > 0.5f && Tn <= 0.5f)) Med = z;
+        T = Tn;
+        last = base + k;
+        if constexpr (FIXED) {
+          if (T >= ANCHOR_T) {
+            anchor = last;
+            T_anchor = T;
+          }
+        }
+        if (!EXACT && !FIXED && T < STOP_T) {
+          done = true;
+          break;
+        }
       }
     }
   }
@@ -208,9 +316,12 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
   // own slab slot, and each tile adds its warps' slabs in warp order, so the
   // gradients are bitwise reproducible.
   float* gr_t = grads + (size_t)t * N_ATTR * cap;
-  const int hi = min(count, c_end * K);  // slots the forward may have applied
-  const int hi_max = min(max(count, other), c_end * K);  // block-uniform
-  float Tb = T;        // transmittance after the instance being visited
+  // Slots the forward may have applied (none under ABL_NOBWD: the tail
+  // loop below then zeroes the whole block).
+  const int hi = (ABL & ABL_NOBWD) ? 0 : min(count, c_end * K);
+  const int hi_max = (ABL & ABL_NOBWD) ? 0 : min(max(count, other), c_end * K);  // block-uniform
+  // Transmittance after the instance being visited (K9: 0 past the anchor).
+  float Tb = FIXED ? 0.f : T;
   float suffix = 0.f;  // sum over later applied instances of w * phi
   for (int base = ((hi_max + BK - 1) / BK - 1) * BK; base >= 0; base -= BK) {
     const int kmax = min(BK, hi - base);  // <= 0: this tile has no slots here
@@ -228,8 +339,11 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
         const float op = attr[OP * BK + k];
         const float power =
             falloff_power(attr[MU * BK + k], attr[MV * BK + k], ca, cb, cc, pu, pv, &d0, &d1);
-        const float alpha = fminf(ALPHA_CLAMP, op * expf(power));
+        const float alpha = fminf(ALPHA_CLAMP, op * gauss<ABL>(power));
         if (power <= 0.f && alpha >= MIN_ALPHA) {
+          if constexpr (FIXED) {
+            if (base + k == anchor) Tb = T_anchor;
+          }
           const float one_m = 1.f - alpha;
           const float Tp = Tb / one_m;
           const float w = alpha * Tp;
@@ -253,7 +367,12 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
         }
       }
       float* sw = slab + (size_t)warp * N_GRAD * BK + k;
-      if (__any_sync(FULL_MASK, has)) {
+      if constexpr ((ABL & ABL_NOREDUCE) != 0) {
+        if (lane == (k & 31)) {
+#pragma unroll
+          for (int j = 0; j < N_GRAD; ++j) sw[j * BK] = v[j];
+        }
+      } else if (__any_sync(FULL_MASK, has)) {
 #pragma unroll
         for (int j = 0; j < N_GRAD; ++j) {
           const float s = warp_sum(v[j]);
@@ -269,8 +388,13 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
       const int r = i / kmax;
       const int kk = i - r * kmax;
       float s = 0.f;
-      if (r < N_GRAD)
-        for (int w = w0; w < w0 + tile_warps; ++w) s += slab[((size_t)w * N_GRAD + r) * BK + kk];
+      if (r < N_GRAD) {
+        if constexpr ((ABL & ABL_NOREDUCE) != 0) {
+          s = slab[((size_t)w0 * N_GRAD + r) * BK + kk];
+        } else {
+          for (int w = w0; w < w0 + tile_warps; ++w) s += slab[((size_t)w * N_GRAD + r) * BK + kk];
+        }
+      }
       gr_t[(size_t)r * cap + base + kk] = s;
     }
   }
@@ -283,20 +407,21 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
   }
 }
 
-template <bool EXACT, int TILES>
+template <bool EXACT, int TILES, int ABL = 0>
 static int launch(const float* packed, const int* counts, const int* tile_ids, const float* gt,
                   float* grads, float* loss, int n_tiles, int cap, int K, int tiles_x, int ts_x,
                   int ts_y, float im_w, float depth_w, int use_sur, void* stream) {
   const int threads = TILES * ts_x * ts_y;
   if (threads > MAX_WARPS * 32 || (ts_x * ts_y) % 32 || n_tiles % TILES)
     return (int)cudaErrorInvalidValue;
+  if ((ABL & ABL_FIXED) && (ABLATE_CHUNKS * K > cap || K % 2)) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)TILES * N_BLEND * (K > BK ? K : BK) +
                        (size_t)(threads / 32) * N_GRAD * BK) *
                       sizeof(float);
-  cudaError_t err = allow_smem(fused_track_kernel<EXACT, TILES>, smem);
+  cudaError_t err = allow_smem(fused_track_kernel<EXACT, TILES, ABL>, smem);
   if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0) {
-    fused_track_kernel<EXACT, TILES><<<n_tiles / TILES, threads, smem, (cudaStream_t)stream>>>(
+    fused_track_kernel<EXACT, TILES, ABL><<<n_tiles / TILES, threads, smem, (cudaStream_t)stream>>>(
         packed, counts, tile_ids, gt, grads, loss, cap, K, tiles_x, ts_x, ts_y, im_w, depth_w,
         use_sur);
   }
@@ -322,3 +447,17 @@ extern "C" int gsorb_fused_track_exact(GSORB_TRACK_ARGS) {
 extern "C" int gsorb_paired_track(GSORB_TRACK_ARGS) {
   return launch<false, 2>(GSORB_TRACK_CALL);
 }
+
+// K9's variants (counts is not read). "full" is K1's math over the fixed
+// walk; the others are timing only, except the loss rows of "fwd".
+#define GSORB_ABLATE(variant, switches)                                \
+  extern "C" int gsorb_fused_track_ablate_##variant(GSORB_TRACK_ARGS) { \
+    return launch<false, 1, ABL_FIXED | (switches)>(GSORB_TRACK_CALL);  \
+  }
+
+GSORB_ABLATE(full, 0)
+GSORB_ABLATE(fwd, ABL_NOBWD)
+GSORB_ABLATE(noexp, ABL_NOEXP)
+GSORB_ABLATE(noreduce, ABL_NOREDUCE)
+GSORB_ABLATE(min, ABL_NOEXP | ABL_NOREDUCE)
+GSORB_ABLATE(half2, ABL_HALF2)

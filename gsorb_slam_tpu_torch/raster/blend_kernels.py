@@ -18,6 +18,12 @@ Three kernels live here, each beside a plain version of the same function:
   K7): forward blend + masked L1 + cotangents + backward in one launch.
   Plain version: :func:`tracking_loss_grad_plain` (the same blend, the
   masked L1, and ``torch.autograd`` down to the packed instances).
+- **K9** :func:`tracking_loss_grad_ablate` (``csrc/fused_track.cu``, K1's
+  template with ablation switches), replacing the profiling copy of K1 in
+  ``scripts/profile_fused_ablate.py``: K1's iteration over exactly
+  :data:`ABLATE_CHUNKS` chunks per tile with no stop, in variants that
+  switch parts off for timing. Plain version (``full`` and ``fwd`` only):
+  :func:`tracking_loss_grad_ablate_plain`.
 
 A wrapper launches its kernel for a CUDA tensor (or raises: there is no
 fallback) and takes the plain version only for a tensor on the CPU.
@@ -53,6 +59,8 @@ MU, MV, CA, CB, CC, OP, R, G, B, Z, LIVE = range(11)
 N_ATTR = 16
 N_GRAD = 10  # d_mu, d_mv, d_ca, d_cb, d_cc, d_op, d_r, d_g, d_b, d_z
 MAX_TILE_PX = 256  # threads per block of the blend kernels: one per pixel
+ABLATE_CHUNKS = 2  # chunks per tile K9 walks, whatever the tile's count
+ABLATE_VARIANTS = _build.ABLATE_VARIANTS
 
 
 def attr_cols(prep: Preprocessed) -> torch.Tensor:
@@ -192,6 +200,7 @@ def blend_tiles(
     crossing_median: bool,
     pairs: dict[str, int] | None = None,
     with_last: bool = False,
+    stop: bool = True,
 ) -> tuple[torch.Tensor, ...]:
     """The plain per-tile front-to-back blend, chunk by chunk.
 
@@ -203,12 +212,16 @@ def blend_tiles(
     ``crossing_median`` takes the median depth at the T=0.5 crossing (the
     tracking kernel's rule); otherwise the last applied instance with
     incoming T > 0.5 (the render kernel's). Differentiable w.r.t.
-    ``packed`` except through the median depth.
+    ``packed`` except through the median depth. ``stop=False`` (fast rule
+    only; K9's blend) applies every instance that passes the alpha gate,
+    whatever the pixel's transmittance.
 
     If ``pairs`` is a dict, it receives the (pixel, instance) pair counts
     of the kernels' per-pixel loop: ``evaluated`` (the falloff is computed),
     ``applied`` (the instance is blended) and ``to_last`` (the pairs up to
     each pixel's last applied instance, which a backward walks again)."""
+    if exact and not stop:
+        raise ValueError("the exact stop rule has no no-stop variant")
     n_tiles, _, cap = packed.shape
     px = pu.shape[1]
     K = min(K, cap)
@@ -242,9 +255,12 @@ def blend_tiles(
             apply = contrib & ~(n_cross > 0)
             done = done | crosses.any(dim=-1)
             visited = n_cross - crosses.to(torch.int32) == 0
-        else:
+        elif stop:
             apply = contrib & (T_pref >= STOP_T)
             visited = T_pref >= STOP_T
+        else:
+            apply = contrib
+            visited = torch.ones_like(contrib)
         if pairs is not None:
             visited = visited & live[:, None, :] & ~done0[..., None]
             n_eval += int(visited.sum())
@@ -265,7 +281,7 @@ def blend_tiles(
             z_sel = torch.gather(z, 1, torch.clamp(last - 1, min=0))
             Med = torch.where(last > 0, z_sel, Med).detach()
         T = T * torch.exp(torch.where(apply, log1m, torch.zeros_like(log1m)).sum(-1))
-        if not exact:
+        if not exact and stop:
             done = done | (T < STOP_T)
     chunk_t.append(T)
     if pairs is not None:
@@ -570,16 +586,18 @@ def tracking_blend(
     cfg: RasterConfig,
     tile_ids: torch.Tensor | None = None,
     pairs: dict[str, int] | None = None,
+    stop: bool = True,
 ) -> torch.Tensor:
     """The blend rows ``[T, 8, px]`` the tracking kernels see: the fast rule
     with the T=0.5 crossing median, or with ``cfg.exact_stop`` the exact
     rule with the median of the last applied instance with incoming
-    T > 0.5 (the TPU exact kernel's). ``pairs`` as in :func:`blend_tiles`."""
+    T > 0.5 (the TPU exact kernel's). ``pairs`` and ``stop`` as in
+    :func:`blend_tiles`."""
     tile_ids, K = _tracking_args(packed, cfg, tile_ids)
     ty, tx = tile_grid_shape(cam, cfg)
     pu, pv = tile_pixels(tile_ids, tx, cfg.tile_w_px, cfg.tile_h_px)
     out, _ = blend_tiles(packed, counts, pu, pv, K, exact=cfg.exact_stop,
-                         crossing_median=not cfg.exact_stop, pairs=pairs)
+                         crossing_median=not cfg.exact_stop, pairs=pairs, stop=stop)
     return out
 
 
@@ -593,14 +611,16 @@ def tracking_loss_grad_plain(
     depth_weight: float,
     use_sur_depth: bool,
     tile_ids: torch.Tensor | None = None,
+    stop: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1's and K7's plain version: the blend of :func:`tracking_blend`, the
     masked-sum L1 tracking loss (mask = alpha > 0.99 & gt depth > 0, fixed)
     and autograd to the packed instances. Returns ``(im_w * image_l1,
-    depth_w * depth_l1, d_packed [T, 16, cap])``."""
+    depth_w * depth_l1, d_packed [T, 16, cap])``. ``stop=False``: the blend
+    without the transmittance stop (K9's)."""
     x = packed.detach().requires_grad_(True)
     with torch.enable_grad():
-        out = tracking_blend(x, counts, cam, cfg, tile_ids)
+        out = tracking_blend(x, counts, cam, cfg, tile_ids, stop=stop)
         gtd = gt_tiles[:, 3]
         mask = ((out[:, 4] > 0.99) & (gtd > 0)).to(torch.float32).detach()
         image_l1 = ((out[:, 0:3] - gt_tiles[:, 0:3]).abs() * mask[:, None]).sum()
@@ -620,10 +640,12 @@ def gt_without_loss_edges(
     cfg: RasterConfig,
     eps: float = 1e-5,
     tile_ids: torch.Tensor | None = None,
+    stop: bool = True,
 ) -> tuple[torch.Tensor, int]:
     """``gt_tiles`` (``[T, 4, px]``, one row per packed tile) with depth 0 at
     the pixels where the tracking loss is discontinuous within rounding, and
-    their number.
+    their number. ``stop=False`` reads the blend without the stop (K9's:
+    pass :func:`ablate_view`'s pack and counts).
 
     Those are the pixels whose blended alpha lies within ``eps`` of the 0.99
     mask threshold (the mask may flip) or whose color or depth residual lies
@@ -631,7 +653,7 @@ def gt_without_loss_edges(
     of the pixel by up to ``im_w * w``, so K1 and its plain version may
     disagree there by more than rounding; with depth 0 the pixels are out of
     the loss mask and both see the same signs and mask."""
-    out = tracking_blend(packed, counts, cam, cfg, tile_ids)
+    out = tracking_blend(packed, counts, cam, cfg, tile_ids, stop=stop)
     edge = (out[:, 4] - 0.99).abs() < eps
     edge |= ((out[:, 0:3] - gt_tiles[:, 0:3]).abs() < eps).any(1)
     edge |= (out[:, 3] - gt_tiles[:, 3]).abs() < eps
@@ -668,16 +690,27 @@ def fused_track_launch(
     _build.check_tensor(counts, "counts", torch.int32, (n_tiles,), dev)
     _build.check_tensor(tile_ids, "tile_ids", torch.int32, (n_tiles,), dev)
     _build.check_tensor(gt_tiles, "gt_tiles", torch.float32, (n_tiles, 4, px), dev)
+    name = "fused_track_exact" if cfg.exact_stop else "fused_track_fast"
+    return _launch_track(name, name, packed, counts, tile_ids, gt_tiles, K, tx, cfg, im_weight,
+                         depth_weight, use_sur_depth)
+
+
+def _launch_track(name, counter, packed, counts, tile_ids, gt_tiles, K, tx, cfg, im_weight,
+                  depth_weight, use_sur_depth) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the ``gsorb_<name>`` entry point of ``csrc/fused_track.cu`` on
+    checked operands (``counts`` None for K9, which reads none), counted
+    under ``counter`` -> ``(loss [T, 2], grads [T, 16, cap])``."""
+    n_tiles, _, cap = packed.shape
+    dev = packed.device
     grads = torch.empty((n_tiles, N_ATTR, cap), dtype=torch.float32, device=dev)
     loss = torch.empty((n_tiles, 2), dtype=torch.float32, device=dev)
-    name = "fused_track_exact" if cfg.exact_stop else "fused_track_fast"
     lib = _build.library()
-    _build.count_launch(name)
+    _build.count_launch(counter)
     err = getattr(lib, f"gsorb_{name}")(
-        packed.data_ptr(), counts.data_ptr(), tile_ids.data_ptr(), gt_tiles.data_ptr(),
-        grads.data_ptr(), loss.data_ptr(), n_tiles, cap, K, tx, cfg.tile_w_px,
-        cfg.tile_h_px, float(im_weight), float(depth_weight), int(bool(use_sur_depth)),
-        _build.stream_handle(dev),
+        packed.data_ptr(), None if counts is None else counts.data_ptr(), tile_ids.data_ptr(),
+        gt_tiles.data_ptr(), grads.data_ptr(), loss.data_ptr(), n_tiles, cap, K, tx,
+        cfg.tile_w_px, cfg.tile_h_px, float(im_weight), float(depth_weight),
+        int(bool(use_sur_depth)), _build.stream_handle(dev),
     )
     _build.check(err, name)
     return loss, grads
@@ -708,5 +741,117 @@ def tracking_loss_grad(
         )
     loss, grads = fused_track_launch(packed, counts, gt_tiles, cam, cfg, im_weight,
                                      depth_weight, use_sur_depth, tile_ids)
+    sums = loss.sum(0)
+    return sums[0], sums[1], grads
+
+
+def ablate_view(packed: torch.Tensor, cfg: RasterConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slots K9 walks: ``packed[:, :, :F K]`` (F = :data:`ABLATE_CHUNKS`)
+    and a count of F K for every tile. Raises unless F K fits the capacity."""
+    n_tiles, _, cap = packed.shape
+    K = min(cfg.chunk, cap)
+    if ABLATE_CHUNKS * K > cap or cap % K or K % 2:
+        raise ValueError(f"K9 walks {ABLATE_CHUNKS} chunks of an even {K}; capacity {cap}")
+    fk = ABLATE_CHUNKS * K
+    counts = torch.full((n_tiles,), fk, dtype=torch.int32, device=packed.device)
+    return packed[:, :, :fk], counts
+
+
+def _check_variant(variant: str) -> None:
+    if variant not in ABLATE_VARIANTS:
+        raise ValueError(f"unknown K9 variant {variant!r}; one of {ABLATE_VARIANTS}")
+
+
+def tracking_loss_grad_ablate_plain(
+    packed: torch.Tensor,
+    gt_tiles: torch.Tensor,
+    cam: Camera,
+    cfg: RasterConfig,
+    im_weight: float,
+    depth_weight: float,
+    use_sur_depth: bool,
+    variant: str = "full",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9's plain version for its ``full`` and ``fwd`` variants: K1's plain
+    version over :func:`ablate_view`'s slots with no stop (fast rule, the
+    T=0.5 crossing median) -> ``(im_w * image_l1, depth_w * depth_l1,
+    d_packed [T, 16, cap])``, the gradient rows at and past F K zero and,
+    for ``fwd``, all zero. The other variants are timing only and have no
+    meaning here: they raise ``ValueError``."""
+    _check_variant(variant)
+    if variant not in ("full", "fwd"):
+        raise ValueError(f"K9 variant {variant!r} is timing only: it runs on the card alone")
+    if cfg.exact_stop:
+        raise ValueError("K9 is K1's fast-rule iteration: exact_stop must be False")
+    view, counts = ablate_view(packed, cfg)
+    img, dep, g = tracking_loss_grad_plain(view, counts, gt_tiles, cam, cfg, im_weight,
+                                           depth_weight, use_sur_depth, stop=False)
+    grads = torch.zeros_like(packed)
+    if variant == "full":
+        grads[:, :, :view.shape[2]] = g
+    return img, dep, grads
+
+
+def fused_track_ablate_launch(
+    packed: torch.Tensor,  # [T, 16, cap] screen instances
+    gt_tiles: torch.Tensor,  # [T, 4, px] gt r, g, b, depth
+    cam: Camera,
+    cfg: RasterConfig,
+    im_weight: float,
+    depth_weight: float,
+    use_sur_depth: bool,
+    variant: str = "full",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K9's ``variant`` on CUDA tensors -> ``(loss [T, 2],
+    d_packed [T, 16, cap])``, as :func:`fused_track_launch` (row-major tiles
+    of the whole grid; no counts: K9 walks F K slots of every tile)."""
+    _check_variant(variant)
+    if cfg.exact_stop:
+        raise ValueError("K9 is K1's fast-rule iteration: exact_stop must be False")
+    _check_tile_shape(cfg)
+    ablate_view(packed, cfg)  # raises unless F K fits
+    ty, tx = tile_grid_shape(cam, cfg)
+    n_tiles, _, cap = packed.shape
+    px = cfg.tile_w_px * cfg.tile_h_px
+    dev = packed.device
+    packed = packed.detach()
+    _build.check_tensor(packed, "packed", torch.float32, (ty * tx, N_ATTR, cap), dev)
+    _build.check_tensor(gt_tiles, "gt_tiles", torch.float32, (n_tiles, 4, px), dev)
+    tile_ids = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    return _launch_track(f"fused_track_ablate_{variant}", "fused_track_ablate", packed, None,
+                         tile_ids, gt_tiles, min(cfg.chunk, cap), tx, cfg, im_weight,
+                         depth_weight, use_sur_depth)
+
+
+def tracking_loss_grad_ablate(
+    packed: torch.Tensor,
+    gt_tiles: torch.Tensor,
+    cam: Camera,
+    cfg: RasterConfig,
+    im_weight: float,
+    depth_weight: float,
+    use_sur_depth: bool,
+    variant: str = "full",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9: K1's iteration over :data:`ABLATE_CHUNKS` chunks per tile with no
+    stop, with parts switched off by ``variant`` -> ``(im_w * image_l1,
+    depth_w * depth_l1, d_packed)``:
+
+    - ``full``: the whole iteration (its math checked against
+      :func:`tracking_loss_grad_ablate_plain`);
+    - ``fwd``: the forward and the loss only (gradients zero);
+    - ``noexp``: each exponential replaced by an FMA (timing only);
+    - ``noreduce``: each per-instance sum over the tile's pixels replaced by
+      one lane's value (timing only);
+    - ``min``: ``noexp`` and ``noreduce`` together (timing only);
+    - ``half2``: the forward falloff and alpha in ``__half2`` (timing only).
+
+    CUDA tensors launch the kernel, CPU tensors take the plain version
+    (``full`` and ``fwd`` only)."""
+    if not packed.is_cuda:
+        return tracking_loss_grad_ablate_plain(packed, gt_tiles, cam, cfg, im_weight,
+                                               depth_weight, use_sur_depth, variant)
+    loss, grads = fused_track_ablate_launch(packed, gt_tiles, cam, cfg, im_weight,
+                                            depth_weight, use_sur_depth, variant)
     sums = loss.sum(0)
     return sums[0], sums[1], grads

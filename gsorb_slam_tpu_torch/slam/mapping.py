@@ -171,9 +171,9 @@ def mapping_loss(
     """The reference's mapping loss (``src/Render.cc:420-483``; the warm-up
     variant of ``InitWorld``, ``:537-541``, with ``init_mode``)."""
     valid = gt_depth > 0
-    image_loss = mcfg.lam * l1_mapping(out.color, gt_color) + (1.0 - mcfg.lam) * (
-        1.0 - ssim(out.color, gt_color)
-    )
+    image_loss = mcfg.lam * l1_mapping(out.color, gt_color)
+    if mcfg.lam != 1.0:  # lam = 1, the L1-only loss, skips SSIM's convolutions
+        image_loss = image_loss + (1.0 - mcfg.lam) * (1.0 - ssim(out.color, gt_color))
     depth_loss = l1_mapping(out.depth, gt_depth, valid)
     if init_mode:
         surdepth_loss = l1_mapping(out.median_depth, gt_depth, valid)

@@ -30,7 +30,14 @@ from gsorb_slam_tpu_torch.raster.blend_kernels import (
     tracking_loss_grad,
     tracking_loss_grad_plain,
 )
-from gsorb_slam_tpu_torch.raster.blend_kernels import flat_pack_grad_aux, render_output_from_tiles
+from gsorb_slam_tpu_torch.raster.blend_kernels import (
+    ABLATE_VARIANTS,
+    ablate_view,
+    flat_pack_grad_aux,
+    render_output_from_tiles,
+    tracking_loss_grad_ablate,
+    tracking_loss_grad_ablate_plain,
+)
 from gsorb_slam_tpu_torch.raster.flat_kernels import (
     blend_flat_backward,
     blend_flat_backward_plain,
@@ -227,6 +234,43 @@ def test_k8_matches_plain(dev, paired_sort):
     _, _, g_p = tracking_loss_grad_paired_plain(screen, pb.counts, gt_e, CAM, cfg, 0.7, 1.0,
                                                 True, tile_ids=perm)
     torch.testing.assert_close(g_k, g_p, atol=8e-4, rtol=2e-3)
+
+
+def test_k9_matches_plain(dev):
+    """K9's ``full`` against its plain version (loss 1e-3 relative, gradient
+    rows with the loss-edge pixels of the no-stop blend left out), two
+    launches bitwise equal, ``fwd``'s loss rows equal to ``full``'s, and
+    every variant finite. Capacity 512 at chunk 64: the fixed walk stops at
+    slot 128, short of the fullest tiles."""
+    params = _scene(dev)
+    cfg = dataclasses.replace(CFG, chunk=64)
+    prep = preprocess(*params, torch.eye(4, device=dev), CAM)
+    bins = bin_gaussians(prep, CAM, cfg)
+    screen = pack_instances(prep, bins)
+    gt4 = tile_gt_images(*_gt_images(params, CAM, cfg, dev), CAM, cfg)
+    fk = 2 * cfg.chunk
+    assert int(bins.counts.max()) > fk
+    for use_sur in (True, False):
+        img_k, dep_k, _ = tracking_loss_grad_ablate(screen, gt4, CAM, cfg, 0.7, 1.0, use_sur)
+        img_p, dep_p, _ = tracking_loss_grad_ablate_plain(screen, gt4, CAM, cfg, 0.7, 1.0,
+                                                          use_sur)
+        torch.testing.assert_close(img_k + dep_k, img_p + dep_p, rtol=1e-3, atol=0)
+    view, counts_f = ablate_view(screen, cfg)
+    gt_e, _ = gt_without_loss_edges(view, counts_f, gt4, CAM, cfg, stop=False)
+    n0 = _build.launches["fused_track_ablate"]
+    img_k, dep_k, g_k = tracking_loss_grad_ablate(screen, gt_e, CAM, cfg, 0.7, 1.0, True)
+    assert _build.launches["fused_track_ablate"] == n0 + 1
+    _, _, g_p = tracking_loss_grad_ablate_plain(screen, gt_e, CAM, cfg, 0.7, 1.0, True)
+    torch.testing.assert_close(g_k, g_p, atol=8e-4, rtol=2e-3)
+    assert not g_k[:, :, fk:].any()
+    _, _, again = tracking_loss_grad_ablate(screen, gt_e, CAM, cfg, 0.7, 1.0, True)
+    assert torch.equal(again, g_k)
+    img_f, dep_f, g_f = tracking_loss_grad_ablate(screen, gt_e, CAM, cfg, 0.7, 1.0, True,
+                                                  variant="fwd")
+    assert float(img_f) == float(img_k) and float(dep_f) == float(dep_k) and not g_f.any()
+    for v in ABLATE_VARIANTS:
+        img, dep, g = tracking_loss_grad_ablate(screen, gt_e, CAM, cfg, 0.7, 1.0, True, variant=v)
+        assert bool(torch.isfinite(img + dep)) and bool(torch.isfinite(g).all()), v
 
 
 @pytest.mark.parametrize("exact", [False, True])
