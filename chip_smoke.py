@@ -18,7 +18,8 @@ Phases (any failed check makes the exit code non-zero):
 3. K2f / K2b (instance projection and its pose adjoint) against their plain
    versions on the tracking pack at a pose 1 cm off;
 4. K1 (fused tracking iteration) against its plain version: loss,
-   per-instance gradients, and the pose gradient through K2b;
+   per-instance gradients, and the pose gradient through K2b; then K1 on
+   the pack padded with dead slots to capacity 2048, bit for bit;
 5. the main path: render the gt with ``render_binned`` (K3) at the identity
    pose, ``track_frame`` from bench.py's initial pose, then ``render`` the
    view at the tracked pose (K3); the final pose error must fall below 10%
@@ -31,9 +32,10 @@ Phases (any failed check makes the exit code non-zero):
    version's and its bound (the work this run's data needs);
 7. K4 / K5 (the flat-chunk mapping blend and its backward) against their
    plain versions on the render bins laid out by ``chunk_layout`` with the
-   System's chunk budget: K4's rows under both stop rules, K5's ten
-   gradient rows under a seeded random cotangent, and the parameter
-   gradients through the pack and ``preprocess``;
+   System's chunk budget: K4's rows under both stop rules and its visit
+   words equal to the plain version's, K5's ten gradient rows under a
+   seeded random cotangent, and the parameter gradients through the pack
+   and ``preprocess``;
 8. the mapping step: a window of 4 frames (gt = K3 renders of the map at the
    identity pose and 3 poses 2 cm / 2 degrees away) against a perturbed map;
    at the identity frame ``prune_map``, a K3 render, ``densify_frame`` and
@@ -50,7 +52,8 @@ Phases (any failed check makes the exit code non-zero):
 11. K8 (the paired-rect fused tracking iteration) against its plain version
     (K1's over the rect tiles, un-paired) on the System's paired tracking view
     (16x8 tiles, capacity 512, chunk 256) binned at phase 4's pose with the
-    count-sorted pairing: the same checks;
+    count-sorted pairing: the same checks, and K8 at capacity 2048 as in
+    phase 4;
 12. the RGB-D System: ``track_rgbd`` over the first 10 frames of a TUM-like
     sequence generated on the card (VGA, TUM1's intrinsics, no distortion,
     Kinect noise; 100 frames long, so each frame moves as far as a TUM fr1
@@ -285,6 +288,23 @@ def check_tracking_kernel(torch, checks, label, kernel, plain, raw, q, t, cam, g
     return err, d_screen, screen
 
 
+def check_capacity_padding(torch, checks, label, kernel, screen, gt, cap: int) -> None:
+    """Phases 4 and 11: a tracking kernel's shared memory does not grow with
+    the capacity (each backward window is staged from global memory), so
+    the pack padded with dead slots to capacity ``cap`` launches and gives
+    the loss and the gradients of the pack itself bit for bit, zeros in the
+    padding."""
+    n = screen.shape[2]
+    with torch.no_grad():
+        padded = torch.nn.functional.pad(screen, (0, cap - n)).contiguous()
+        img, dep, g = kernel(screen, gt, True)
+        img_c, dep_c, g_c = kernel(padded, gt, True)
+        same = bool(torch.equal(img_c, img) and torch.equal(dep_c, dep)
+                    and torch.equal(g_c[..., :n], g) and not g_c[..., n:].any())
+    checks.record(f"{label} at capacity {cap} (dead slots padded) bitwise at {n}", 0.0, 0.0,
+                  ok=same)
+
+
 def phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg) -> dict:
     """Phase 7: K4 / K5 against their plain versions on the render bins."""
     from gsorb_slam_tpu_torch.raster.binning import chunk_layout, tile_grid_shape
@@ -312,8 +332,8 @@ def phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg) -> dict:
     with torch.no_grad():
         for exact in (False, True):
             cfg = dataclasses.replace(rcfg, exact_stop=exact)
-            out_k, ct_k, last_k = blend_flat_forward(packed, cb, cam, cfg)
-            out_p, ct_p, last_p = blend_flat_forward_plain(packed, cb, cam, cfg)
+            out_k, ct_k, last_k, visit_k = blend_flat_forward(packed, cb, cam, cfg)
+            out_p, ct_p, last_p, visit_p = blend_flat_forward_plain(packed, cb, cam, cfg)
             torch.cuda.synchronize()
             worst = 0.0
             for name, rows, tol in (("color", slice(0, 3), 2e-3), ("depth", slice(3, 4), 5e-3),
@@ -329,9 +349,14 @@ def phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg) -> dict:
             # 1e-4 stop within rounding.
             checks.record(f"K4 exact={int(exact)} last-applied slots differing (share)",
                           n_last / last_k.numel(), 1e-4)
+            # K5's visit words, exactly the plain version's.
+            n_words = int((visit_k != visit_p).sum())
+            print(f"# K4 exact={int(exact)} visit words: {n_words} of {visit_k.numel()} differ "
+                  f"from the plain version's; {int(visit_k.ne(0).sum())} non-zero", flush=True)
+            checks.record(f"K4 exact={int(exact)} visit words differing", n_words, 0)
             if not exact:
                 res["k4_err"] = max(worst, err)
-                fwd = (out_k, ct_k, last_k)
+                fwd = (out_k, ct_k, last_k, visit_k)
 
     # K5 under a seeded random cotangent of every differentiable row, with
     # the pixels where the blend is discontinuous within rounding left out.
@@ -1182,6 +1207,10 @@ def main() -> int:
         lambda s_, g_, u: tracking_loss_grad_plain(s_, counts_t, g_, cam, rcfg_t, im_w,
                                                    depth_w, u),
         raw, q1, t1, cam, gt4, gt4_e, n_edge)
+    check_capacity_padding(
+        torch, checks, "K1",
+        lambda s_, g_, u: tracking_loss_grad(s_, counts_t, g_, cam, rcfg_t, im_w, depth_w, u),
+        screen_k, gt4, 4 * raw.shape[2])
     # ---- 3b. K2b against its plain version (d_screen = K1's gradients) ----
     drt_k = preprocess_bwd(raw, rt1, d_screen, cam, sm)
     drt_p = preprocess_bwd_plain(raw, rt1, d_screen, cam, sm)
@@ -1307,6 +1336,11 @@ def main() -> int:
         lambda s_, g_, u: tracking_loss_grad_paired_plain(s_, counts_p, g_, cam, rcfg_p, im_w,
                                                           depth_w, u, tile_ids=perm),
         raw_p, q1, t1, cam, gt_pairs, pair_gt_rows(rows_e), n_edge8)
+    check_capacity_padding(
+        torch, checks, "K8",
+        lambda s_, g_, u: tracking_loss_grad_paired(s_, counts_p, g_, cam, rcfg_p, im_w,
+                                                    depth_w, u, tile_ids=perm),
+        screen_pr, gt_pairs, 4 * raw_p.shape[2])
 
     # ---- 12-13. the System and its two kernel configurations ----
     sysres = phase_system(torch, checks, dev)
@@ -1438,6 +1472,10 @@ def main() -> int:
     b_k6, by_k6 = bound_ms(
         live_r * 10 * 4 + n_tiles * (n_chunks_r + 1 + 1 + 6) * px * 4 + live_r * 10 * 4,
         pairs_k3["to_last"] * EVAL_OPS_PER_PAIR + pairs_k3["applied"] * TRACK_BWD_APPLY_OPS_PER_PAIR)
+    for name, pr in (("K1", pairs_k1), ("K7", pairs_k7), ("K8", pairs_k8), ("K4 / K5", pairs_k4)):
+        print(f"# {name} backward (lane, slot) pairs: {pr['warp_visits']} visited (the slots "
+              f"each warp applied) against {pr['to_last']} to each pixel's last applied slot "
+              f"({pr['warp_visits'] / max(pr['to_last'], 1):.4f})", flush=True)
     print(f"# (pixel, instance) pairs: K7 {json.dumps(pairs_k7)}, K8 {json.dumps(pairs_k8)} "
           f"over {live_p:.0f} live rect-tile instances", flush=True)
     print(f"# (pixel, instance) pairs: K1 {json.dumps(pairs_k1)}, K3 {json.dumps(pairs_k3)}, "

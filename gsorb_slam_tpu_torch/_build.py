@@ -73,8 +73,8 @@ _TRACK_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]
 _SIGNATURES = {
     "gsorb_blend_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gsorb_blend_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gsorb_blend_flat_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gsorb_blend_flat_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gsorb_blend_flat_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gsorb_blend_flat_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gsorb_fused_track_fast": _TRACK_ARGS,
     "gsorb_fused_track_exact": _TRACK_ARGS,
     "gsorb_paired_track": _TRACK_ARGS,

@@ -42,30 +42,56 @@
 // halves of a pair are done); these stop per pixel, as the original renderer
 // does. The two differ by less than 1e-4 in the blended outputs.
 //
-// What bounds them on the H100: per evaluated (pixel, instance) pair the
-// forward spends ~16 f32 operations (falloff, exp, gates) and ~15 more when
-// the instance applies; the backward evaluates the falloff again up to the
-// pixel's last applied instance and spends ~53 per applied pair, its share
-// of the pixel sums included. The packed block (39 MB at 1200 tiles x cap
-// 512) and the gradient block are each moved once. The pairs, not bytes,
-// set the time.
+// What bounds them on the H100: the (pixel, instance) pairs, not bytes (the
+// packed block, 39 MB at 1200 tiles x cap 512, and the gradient block are
+// each moved once). Per evaluated pair the forward spends ~16 f32
+// operations (falloff, exp, gates) and ~15 more when the instance applies;
+// the backward spends ~53 per applied pair, its share of the pixel sums
+// included. What it costs beyond that is instruction overhead per pair:
+// shared-memory loads, branches, and per-slot bookkeeping of the warp.
 //
 // Design: one block per tile (K8: per pair of rect tiles, threads [0, px)
 // the first tile's pixels and [px, 2 px) the second's), one thread per
 // pixel, forward and backward in the same block so each pixel's state
 // (final T, last applied instance, cotangents) stays in registers between
-// them. Each tile stages its own chunk's 10 attribute rows in shared memory
-// (10 KB at K = 256); the block walks the chunks of its longer tile and
-// leaves the chunk loop once every pixel of both is done. The backward
-// walks back from each pixel's last applied instance and rebuilds T by
-// division by (1 - alpha), as the original renderer's backward does,
-// instead of storing per-(instance, pixel) slabs, which do not fit in shared
-// memory. Per-instance sums over a tile's pixels use warp shuffles; each
-// warp writes its sums into its own shared-memory slab, and each tile adds
-// its warps' slabs in a fixed warp order (no atomics), so the result is
-// bitwise reproducible. The backward stages BK = 64 instances at a time to
-// keep the slabs at 20 KB. Each tile owns its [16, cap] gradient block, so no
-// global atomics are needed.
+// them.
+//   - Rows per slot. Each chunk's live rows go to shared memory once for
+//     the forward, per slot (common.cuh's SLOT_F layout: a pair's falloff
+//     inputs are two 16-byte broadcast loads), and each backward window of
+//     64 slots is staged again from global memory (L2) before its warps
+//     visit it. So the shared memory does not grow with the capacity: 32.5
+//     KB a block at cap 512 (K8's two tiles 44.5 KB). Keeping every slot
+//     staged from the forward to the backward (24 KB a tile at cap 512, 96
+//     KB at 2048) bought at most 0.5% at cap 512, cost K8 8% and K1 5.5% at
+//     cap 1024 in blocks per SM, and could not launch past cap ~2200 (K8)
+//     or ~4300 (K1) (PERF.md). Copying chunk c + 1 by cp.async
+//     while chunk c blends bought < 1%: the co-resident blocks already hide
+//     the copy, so it is a plain copy. The block leaves the chunk loop once
+//     every pixel is done.
+//   - The forward skips the exp of a pair whose falloff exponent is below
+//     -5.6: with op <= 1 it cannot pass the 1/255 gate, so the applied
+//     pairs, and every output, are the same.
+//   - Visit words. Each pixel that applies slot s sets bit s of its warp's
+//     word s / 32 in shared memory (an integer atomicOr: the OR does not
+//     depend on the order). The backward walks, per warp, only those set
+//     bits from high to low: at the main path's pack the warps visit 25.8 M
+//     (lane, slot) pairs where a walk to each pixel's last applied slot
+//     evaluates 106.4 M (profiling/count_pairs.py). Each lane still checks
+//     slot <= last and the gate, so the stop rules and the median are
+//     unchanged; it rebuilds T by division by (1 - alpha), as the original
+//     renderer's backward does.
+//   - Sums without atomics. Per visited slot a warp sums its lanes' ten
+//     gradient terms by a halving tree of 16 shuffles (the same pairs, and
+//     so the same floats, as ten shuffle-down sums of 50) into its
+//     shared-memory slab; per window of
+//     64 slots each tile adds, slot by slot and in warp order, the slabs of
+//     the warps that visited the slot, and writes every row of the window
+//     (zeros included). Every rerun is bit for bit; each tile owns its
+//     [16, cap] gradient block, so no global atomics are needed.
+// No tensor cores: the one contraction, the pixel sums, is 10-13% of the
+// time (K9's noreduce); the rest is per-pair elementwise work with data-
+// dependent stops, which wgmma has nothing of size to work on. TMA tensor
+// maps buy nothing for 3 KB row windows.
 //
 // K9, the ablation copy of K1 (timing only, except "full" and the loss rows
 // of "fwd"): the template's third parameter ABL is a bit set of switches,
@@ -81,7 +107,8 @@
 //                at op = 1, so about as many pairs pass the gate;
 //   ABL_NOREDUCE each per-instance sum over the tile's pixels (the warp
 //                shuffles, the per-warp slabs and their ordered adds) becomes
-//                one lane's own value;
+//                one lane's own value, that of the first warp that visited
+//                the slot;
 //   ABL_HALF2    the forward falloff and alpha of two instances per step in
 //                __half2 (offsets clamped to +-64 px so the products stay
 //                finite); the blend itself stays float32.
@@ -89,9 +116,9 @@
 // and the backward's rebuild of T by division from the final T would give 0
 // for every instance in front. So the forward records the anchor, the last
 // applied slot whose outgoing T is still >= 1e-30, and that T. The backward
-// still evaluates every pair after the anchor, with T taken as 0 there (their
-// weights are below 1e-30), and from the anchor back rebuilds T by division
-// from the recorded T. The error this leaves is below 1e-30 times a
+// still visits every applied slot after the anchor, with T taken as 0 there
+// (their weights are below 1e-30), and from the anchor back rebuilds T by
+// division from the recorded T. The error this leaves is below 1e-30 times a
 // cotangent.
 #include <cuda_fp16.h>
 
@@ -99,7 +126,6 @@
 
 using namespace gsorb;
 
-constexpr int BK = 64;        // instances per backward sub-chunk
 constexpr int MAX_WARPS = 8;  // 256 threads per block
 
 // K9's switches (see the header) and its fixed walk.
@@ -110,6 +136,9 @@ constexpr int ABL_NOREDUCE = 8;
 constexpr int ABL_HALF2 = 16;
 constexpr int ABLATE_CHUNKS = 2;
 constexpr float ANCHOR_T = 1e-30f;
+// exp(-5.6) < 1/255: with op <= 1 no pair whose falloff exponent lies below
+// this passes the forward's alpha gate.
+constexpr float POWER_CUT = -5.6f;
 
 // exp(power), or its stand-in under ABL_NOEXP.
 template <int ABL>
@@ -121,48 +150,26 @@ __device__ __forceinline__ float gauss(float power) {
   }
 }
 
-// ABL_HALF2: the falloff exponents and alphas of instances k and k + 1 of
-// the staged rows attr [N_BLEND][K] at pixel (pu, pv), in __half2.
-__device__ __forceinline__ void half2_alpha(const float* __restrict__ attr, int K, int k,
-                                            float pu, float pv, float2* power, float2* alpha) {
+// ABL_HALF2: the falloff exponents and alphas of the staged slots s and
+// s + 1 at pixel (pu, pv), in __half2.
+__device__ __forceinline__ void half2_alpha(const float4* __restrict__ r4, int s, float pu,
+                                            float pv, float2* power, float2* alpha) {
   auto off = [](float x) { return fminf(fmaxf(x, -64.f), 64.f); };
-  const __half2 d0 = __floats2half2_rn(off(attr[MU * K + k] - pu), off(attr[MU * K + k + 1] - pu));
-  const __half2 d1 = __floats2half2_rn(off(attr[MV * K + k] - pv), off(attr[MV * K + k + 1] - pv));
-  const __half2 ca = __floats2half2_rn(attr[CA * K + k], attr[CA * K + k + 1]);
-  const __half2 cb = __floats2half2_rn(attr[CB * K + k], attr[CB * K + k + 1]);
-  const __half2 cc = __floats2half2_rn(attr[CC * K + k], attr[CC * K + k + 1]);
-  const __half2 op = __floats2half2_rn(attr[OP * K + k], attr[OP * K + k + 1]);
+  const float4 A0 = r4[3 * s], B0 = r4[3 * s + 1], A1 = r4[3 * s + 3], B1 = r4[3 * s + 4];
+  const __half2 d0 = __floats2half2_rn(off(A0.x - pu), off(A1.x - pu));
+  const __half2 d1 = __floats2half2_rn(off(A0.y - pv), off(A1.y - pv));
+  const __half2 ca = __floats2half2_rn(A0.z, A1.z);
+  const __half2 cb = __floats2half2_rn(A0.w, A1.w);
+  const __half2 cc = __floats2half2_rn(B0.x, B1.x);
+  const __half2 op = __floats2half2_rn(B0.y, B1.y);
   const __half2 h = __float2half2_rn(0.5f);
-  __half2 s = __hmul2(__hmul2(h, ca), __hmul2(d0, d0));
-  s = __hfma2(__hmul2(h, cc), __hmul2(d1, d1), s);
-  s = __hfma2(cb, __hmul2(d0, d1), s);
-  const __half2 pw = __hneg2(s);
+  __half2 t = __hmul2(__hmul2(h, ca), __hmul2(d0, d0));
+  t = __hfma2(__hmul2(h, cc), __hmul2(d1, d1), t);
+  t = __hfma2(cb, __hmul2(d0, d1), t);
+  const __half2 pw = __hneg2(t);
   const __half2 a = __hmin2(__float2half2_rn(ALPHA_CLAMP), __hmul2(op, h2exp(pw)));
   *power = __half22float2(pw);
   *alpha = __half22float2(a);
-}
-
-// Copies the N_BLEND attribute rows of slots [base, base + K) of one tile's
-// packed block into attr [N_BLEND][K], with the tile's threads
-// p = 0 .. np - 1, coalesced along the slots.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ pk, int cap, int base,
-                                           int K, float* __restrict__ attr, int p, int np) {
-  for (int i = p; i < N_BLEND * K; i += np) {
-    const int r = i / K;
-    attr[i] = pk[(size_t)r * cap + base + i - r * K];
-  }
-}
-
-// As stage_rows for slots [base, base + n) into attr [N_BLEND][stride],
-// zero past n.
-__device__ __forceinline__ void stage_rows_padded(const float* __restrict__ pk, int cap,
-                                                  int base, int n, int stride,
-                                                  float* __restrict__ attr, int p, int np) {
-  for (int i = p; i < N_BLEND * stride; i += np) {
-    const int r = i / stride;
-    const int k = i - r * stride;
-    attr[i] = k < n ? pk[(size_t)r * cap + base + k] : 0.f;
-  }
 }
 
 template <bool EXACT, int TILES, int ABL = 0>
@@ -172,7 +179,8 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
     float* __restrict__ grads, float* __restrict__ loss, int cap, int K, int tiles_x,
     int ts_x, int ts_y, float im_w, float depth_w, int use_sur) {
   constexpr bool FIXED = (ABL & ABL_FIXED) != 0;  // K9
-  extern __shared__ float smem[];
+  constexpr bool NOREDUCE = (ABL & ABL_NOREDUCE) != 0;
+  extern __shared__ float4 smem4[];
   __shared__ float red[2][MAX_WARPS];
 
   const int tpx = ts_x * ts_y;  // pixels (threads) per tile
@@ -182,10 +190,17 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
   const int warp = threadIdx.x >> 5;
   const int tile_warps = tpx >> 5;
   const int w0 = half * tile_warps;  // the tile's first warp
-  const int stride = max(K, BK);
-  // [TILES][N_BLEND][stride] staged rows, then [warps][N_GRAD][BK] slabs.
-  float* attr = smem + (size_t)half * N_BLEND * stride;
-  float* slab = smem + (size_t)TILES * N_BLEND * stride;
+  const int cw = (cap + 31) >> 5;    // visit words per warp
+  // [TILES][n_rows][SLOT_F] staged rows (one chunk in the forward, one
+  // window in the backward; slot s at s - the first slot), [warps][N_GRAD]
+  // [WIN] slabs, then [warps][cw] visit words.
+  const int n_rows = max(K, WIN);
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* rows = smem + (size_t)half * n_rows * SLOT_F;
+  const float4* r4 = reinterpret_cast<const float4*>(rows);
+  float* slab = smem + (size_t)TILES * n_rows * SLOT_F;
+  unsigned* words = reinterpret_cast<unsigned*>(slab + (size_t)TILES * tile_warps * N_GRAD * WIN);
+  unsigned* my_words = words + warp * cw;
 
   const int t = blockIdx.x * TILES + half;
   const int tg = tile_ids[t];
@@ -198,6 +213,7 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
   const float* pk = packed + (size_t)t * N_ATTR * cap;
 
   // ---- forward ----
+  for (int j = lane; j < cw; j += 32) my_words[j] = 0u;
   float T = 1.f, Cr = 0.f, Cg = 0.f, Cb = 0.f, D = 0.f, S = 0.f, Med = 0.f;
   bool done = false;
   int last = -1;  // index of this pixel's last applied instance
@@ -205,32 +221,36 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
   int anchor = -1;       // K9: the last applied slot whose outgoing T >= ANCHOR_T,
   float T_anchor = 0.f;  // and that T
   for (int c = 0; c < n_live; ++c) {
-    if (__syncthreads_count(!done) == 0) break;  // also fences the last chunk's reads
     const int base = c * K;
     const int kmax = min(K, count - base);  // <= 0 once this tile's instances ran out
-    if (kmax > 0) stage_rows(pk, cap, base, K, attr, p, tpx);
-    __syncthreads();
+    // Chunk c's rows replace chunk c - 1's once their readers are done.
+    if (c > 0) __syncthreads();
+    stage_slots(rows, pk + base, cap, 0, kmax, p, tpx);
+    // The rows are in (and the words zeroed); every pixel done ends it.
+    if (__syncthreads_count(!done) == 0) break;
     c_end = c + 1;
     if (done) continue;
     if constexpr ((ABL & ABL_HALF2) != 0) {
       for (int k = 0; k < kmax; k += 2) {
         float2 pw, al;
-        half2_alpha(attr, K, k, pu, pv, &pw, &al);
+        half2_alpha(r4, k, pu, pv, &pw, &al);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float alpha = h ? al.y : al.x;
           if ((h ? pw.y : pw.x) > 0.f || alpha < MIN_ALPHA) continue;
+          const int s = base + k + h;
           const float Tn = T * (1.f - alpha);
           const float w = alpha * T;
-          const float z = attr[Z * K + k + h];
-          Cr += w * attr[CR * K + k + h];
-          Cg += w * attr[CG * K + k + h];
-          Cb += w * attr[CBL * K + k + h];
-          D += w * z;
+          const float4 B = r4[3 * (k + h) + 1], C = r4[3 * (k + h) + 2];
+          Cr += w * C.x;
+          Cg += w * C.y;
+          Cb += w * C.z;
+          D += w * B.z;
           S += w;
-          if (T > 0.5f && Tn <= 0.5f) Med = z;
+          if (T > 0.5f && Tn <= 0.5f) Med = B.z;
           T = Tn;
-          last = base + k + h;
+          last = s;
+          mark_visit(my_words, s);
           if (T >= ANCHOR_T) {
             anchor = last;
             T_anchor = T;
@@ -239,12 +259,14 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
       }
     } else {
       for (int k = 0; k < kmax; ++k) {
+        const int s = base + k;
+        const float4 A = r4[3 * k], B = r4[3 * k + 1];
         float d0, d1;
-        const float power = falloff_power(attr[MU * K + k], attr[MV * K + k],
-                                          attr[CA * K + k], attr[CB * K + k],
-                                          attr[CC * K + k], pu, pv, &d0, &d1);
-        if (power > 0.f) continue;
-        const float alpha = fminf(ALPHA_CLAMP, attr[OP * K + k] * gauss<ABL>(power));
+        const float power = falloff_power(A.x, A.y, A.z, A.w, B.x, pu, pv, &d0, &d1);
+        // Below POWER_CUT no pair with op <= 1 passes the alpha gate: its
+        // exp is skipped, and the applied pairs are the same.
+        if (power > 0.f || (power < POWER_CUT && B.y <= 1.f)) continue;
+        const float alpha = fminf(ALPHA_CLAMP, B.y * gauss<ABL>(power));
         if (alpha < MIN_ALPHA) continue;
         const float Tn = T * (1.f - alpha);
         if (EXACT && Tn < STOP_T) {
@@ -252,15 +274,16 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
           break;
         }
         const float w = alpha * T;
-        const float z = attr[Z * K + k];
-        Cr += w * attr[CR * K + k];
-        Cg += w * attr[CG * K + k];
-        Cb += w * attr[CBL * K + k];
-        D += w * z;
+        const float4 C = r4[3 * k + 2];
+        Cr += w * C.x;
+        Cg += w * C.y;
+        Cb += w * C.z;
+        D += w * B.z;
         S += w;
-        if (EXACT ? T > 0.5f : (T > 0.5f && Tn <= 0.5f)) Med = z;
+        if (EXACT ? T > 0.5f : (T > 0.5f && Tn <= 0.5f)) Med = B.z;
         T = Tn;
-        last = base + k;
+        last = s;
+        mark_visit(my_words, s);
         if constexpr (FIXED) {
           if (T >= ANCHOR_T) {
             anchor = last;
@@ -311,100 +334,57 @@ __global__ void __launch_bounds__(256) fused_track_kernel(
   }
 
   // ---- backward ----
-  // Walks back over [0, hi) in sub-chunks of BK instances; the block walks
-  // the longer tile's range. Each warp writes its per-instance sums into its
-  // own slab slot, and each tile adds its warps' slabs in warp order, so the
-  // gradients are bitwise reproducible.
+  // Windows of WIN slots over [0, hi_max), high to low (block-uniform; the
+  // block walks the longer tile's range). In each, every warp visits the
+  // slots its lanes applied and writes its sums into its slab; then each
+  // tile adds, slot by slot, the slabs of its warps that visited the slot,
+  // in warp order, and writes every row of the window. Slots past the last
+  // window carry no gradient (none under ABL_NOBWD).
   float* gr_t = grads + (size_t)t * N_ATTR * cap;
-  // Slots the forward may have applied (none under ABL_NOBWD: the tail
-  // loop below then zeroes the whole block).
-  const int hi = (ABL & ABL_NOBWD) ? 0 : min(count, c_end * K);
-  const int hi_max = (ABL & ABL_NOBWD) ? 0 : min(max(count, other), c_end * K);  // block-uniform
+  const int hi_max = (ABL & ABL_NOBWD) ? 0 : min(max(count, other), c_end * K);
+  const int n_win = (hi_max + WIN - 1) / WIN;
   // Transmittance after the instance being visited (K9: 0 past the anchor).
   float Tb = FIXED ? 0.f : T;
   float suffix = 0.f;  // sum over later applied instances of w * phi
-  for (int base = ((hi_max + BK - 1) / BK - 1) * BK; base >= 0; base -= BK) {
-    const int kmax = min(BK, hi - base);  // <= 0: this tile has no slots here
-    __syncthreads();  // earlier readers of attr / slab are done
-    stage_rows_padded(pk, cap, base, kmax, BK, attr, p, tpx);
+  for (int base = (n_win - 1) * WIN; base >= 0; base -= WIN) {
+    __syncthreads();  // the last window's row and slab readers are done
+    stage_slots(rows, pk + base, cap, 0, min(WIN, count - base), p, tpx);
     __syncthreads();
-    for (int k = kmax - 1; k >= 0; --k) {
+    for_each_visited(my_words, cw, base, [&](int s) {
       float v[N_GRAD];
 #pragma unroll
       for (int j = 0; j < N_GRAD; ++j) v[j] = 0.f;
-      bool has = false;
-      if (base + k <= last) {
+      if (s <= last) {
+        const float4* r = r4 + 3 * (s - base);  // the staged slot
+        const float4 A = r[0], B = r[1];
         float d0, d1;
-        const float ca = attr[CA * BK + k], cb = attr[CB * BK + k], cc = attr[CC * BK + k];
-        const float op = attr[OP * BK + k];
-        const float power =
-            falloff_power(attr[MU * BK + k], attr[MV * BK + k], ca, cb, cc, pu, pv, &d0, &d1);
-        const float alpha = fminf(ALPHA_CLAMP, op * gauss<ABL>(power));
+        const float power = falloff_power(A.x, A.y, A.z, A.w, B.x, pu, pv, &d0, &d1);
+        const float alpha = fminf(ALPHA_CLAMP, B.y * gauss<ABL>(power));
         if (power <= 0.f && alpha >= MIN_ALPHA) {
           if constexpr (FIXED) {
-            if (base + k == anchor) Tb = T_anchor;
+            if (s == anchor) Tb = T_anchor;
           }
-          const float one_m = 1.f - alpha;
-          const float Tp = Tb / one_m;
-          const float w = alpha * Tp;
-          const float phi = g_r * attr[CR * BK + k] + g_g * attr[CG * BK + k] +
-                            g_b * attr[CBL * BK + k] + g_d * attr[Z * BK + k];
-          const float d_alpha = Tp * phi - suffix / one_m;
-          suffix += w * phi;
-          Tb = Tp;
-          const float dpow = alpha < ALPHA_CLAMP ? alpha * d_alpha : 0.f;
-          v[0] = -dpow * (ca * d0 + cb * d1);
-          v[1] = -dpow * (cc * d1 + cb * d0);
-          v[2] = -0.5f * dpow * d0 * d0;
-          v[3] = -dpow * d0 * d1;
-          v[4] = -0.5f * dpow * d1 * d1;
-          v[5] = dpow / fmaxf(op, 1e-12f);
-          v[6] = w * g_r;
-          v[7] = w * g_g;
-          v[8] = w * g_b;
-          v[9] = w * g_d;
-          has = true;
+          const float4 C = r[2];
+          const float phi = g_r * C.x + g_g * C.y + g_b * C.z + g_d * B.z;
+          pair_backward(alpha, B.y, A.z, A.w, B.x, d0, d1, phi, g_r, g_g, g_b, g_d, Tb, suffix,
+                        v);
         }
       }
-      float* sw = slab + (size_t)warp * N_GRAD * BK + k;
-      if constexpr ((ABL & ABL_NOREDUCE) != 0) {
-        if (lane == (k & 31)) {
+      float* sw = slab + (size_t)warp * N_GRAD * WIN + (s - base);
+      if constexpr (NOREDUCE) {
+        if (lane == (s & 31)) {
 #pragma unroll
-          for (int j = 0; j < N_GRAD; ++j) sw[j * BK] = v[j];
+          for (int j = 0; j < N_GRAD; ++j) sw[j * WIN] = v[j];
         }
-      } else if (__any_sync(FULL_MASK, has)) {
-#pragma unroll
-        for (int j = 0; j < N_GRAD; ++j) {
-          const float s = warp_sum(v[j]);
-          if (lane == 0) sw[j * BK] = s;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int j = 0; j < N_GRAD; ++j) sw[j * BK] = 0.f;
+      } else {
+        warp_slot_sums(v, sw, lane);
       }
-    }
+    });
     __syncthreads();
-    for (int i = p; i < N_ATTR * kmax; i += tpx) {
-      const int r = i / kmax;
-      const int kk = i - r * kmax;
-      float s = 0.f;
-      if (r < N_GRAD) {
-        if constexpr ((ABL & ABL_NOREDUCE) != 0) {
-          s = slab[((size_t)w0 * N_GRAD + r) * BK + kk];
-        } else {
-          for (int w = w0; w < w0 + tile_warps; ++w) s += slab[((size_t)w * N_GRAD + r) * BK + kk];
-        }
-      }
-      gr_t[(size_t)r * cap + base + kk] = s;
-    }
+    write_window<NOREDUCE>(gr_t, cap, base, min(WIN, cap - base), slab, words, cw, w0,
+                           w0 + tile_warps, p, tpx);
   }
-  // Dead slots and slots of chunks the block never entered carry no gradient.
-  const int tail = cap - hi;
-  for (int i = p; i < N_ATTR * tail; i += tpx) {
-    const int r = i / tail;
-    const int kk = i - r * tail;
-    gr_t[(size_t)r * cap + hi + kk] = 0.f;
-  }
+  zero_slots(gr_t, cap, n_win * WIN, cap, p, tpx);
 }
 
 template <bool EXACT, int TILES, int ABL = 0>
@@ -415,9 +395,10 @@ static int launch(const float* packed, const int* counts, const int* tile_ids, c
   if (threads > MAX_WARPS * 32 || (ts_x * ts_y) % 32 || n_tiles % TILES)
     return (int)cudaErrorInvalidValue;
   if ((ABL & ABL_FIXED) && (ABLATE_CHUNKS * K > cap || K % 2)) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)TILES * N_BLEND * (K > BK ? K : BK) +
-                       (size_t)(threads / 32) * N_GRAD * BK) *
-                      sizeof(float);
+  const size_t smem =
+      ((size_t)TILES * max(K, WIN) * SLOT_F + (size_t)(threads / 32) * N_GRAD * WIN) *
+          sizeof(float) +
+      (size_t)(threads / 32) * ((cap + 31) / 32) * sizeof(unsigned);
   cudaError_t err = allow_smem(fused_track_kernel<EXACT, TILES, ABL>, smem);
   if (err != cudaSuccess) return (int)err;
   if (n_tiles > 0) {

@@ -201,6 +201,7 @@ def blend_tiles(
     pairs: dict[str, int] | None = None,
     with_last: bool = False,
     stop: bool = True,
+    with_visit: bool = False,
 ) -> tuple[torch.Tensor, ...]:
     """The plain per-tile front-to-back blend, chunk by chunk.
 
@@ -208,7 +209,10 @@ def blend_tiles(
     final T, 0) and ``chunk_t [T, n_chunks + 1, px]`` (the incoming T of
     each chunk, 0 once the pixel is done; the last row is the final T);
     with ``with_last`` also ``last [T, px]`` int32, the slot of each pixel's
-    last applied instance (-1 for none).
+    last applied instance (-1 for none); with ``with_visit`` also (last)
+    ``visit [T, n_chunks, px / 32, ceil(K / 32)]`` int32, the visit words
+    the kernels record: bit b of word j of warp w in chunk c is set iff
+    some pixel 32 w .. 32 w + 31 applied slot 32 j + b of the chunk.
     ``crossing_median`` takes the median depth at the T=0.5 crossing (the
     tracking kernel's rule); otherwise the last applied instance with
     incoming T > 0.5 (the render kernel's). Differentiable w.r.t.
@@ -218,8 +222,10 @@ def blend_tiles(
 
     If ``pairs`` is a dict, it receives the (pixel, instance) pair counts
     of the kernels' per-pixel loop: ``evaluated`` (the falloff is computed),
-    ``applied`` (the instance is blended) and ``to_last`` (the pairs up to
-    each pixel's last applied instance, which a backward walks again)."""
+    ``applied`` (the instance is blended), ``to_last`` (the pairs up to
+    each pixel's last applied instance) and ``warp_visits`` (the pairs the
+    kernels' backward evaluates again: 32 x the distinct applied slots of
+    each group of 32 consecutive pixels, a warp, which walks only those)."""
     if exact and not stop:
         raise ValueError("the exact stop rule has no no-stop variant")
     n_tiles, _, cap = packed.shape
@@ -233,8 +239,9 @@ def blend_tiles(
     done = torch.zeros((n_tiles, px), dtype=torch.bool, device=dev)
     chunk_t = []
     kk = torch.arange(K, device=dev)
-    n_eval = n_apply = 0
+    n_eval = n_apply = n_visit = 0
     n_last = torch.zeros((n_tiles, px), dtype=torch.long, device=dev)
+    visit = []
     for c in range(n_chunks):
         done0 = done
         chunk_t.append(torch.where(done, torch.zeros_like(T), T))
@@ -268,6 +275,11 @@ def blend_tiles(
         if pairs is not None or with_last:
             idx = torch.where(apply, c * K + kk + 1, torch.zeros_like(kk)).amax(dim=-1)
             n_last = torch.maximum(n_last, idx)
+        if pairs is not None or with_visit:
+            warp_apply = _per_warp(apply)  # [T, px / 32, K]
+            n_visit += 32 * int(warp_apply.sum())
+            if with_visit:
+                visit.append(_visit_words(warp_apply))
         w = torch.where(apply, alpha * T_pref, torch.zeros_like(alpha))
         A = torch.cat([pk[:, R:Z + 1, :], torch.ones_like(pk[:, :1, :])], dim=1)  # [T, 5, K]
         acc = acc + torch.einsum("tpk,tak->tap", w, A)
@@ -285,12 +297,33 @@ def blend_tiles(
             done = done | (T < STOP_T)
     chunk_t.append(T)
     if pairs is not None:
-        pairs.update(evaluated=n_eval, applied=n_apply, to_last=int(n_last.sum()))
+        pairs.update(evaluated=n_eval, applied=n_apply, to_last=int(n_last.sum()),
+                     warp_visits=n_visit)
     zero = torch.zeros_like(T)
-    out = torch.cat([acc, torch.stack([Med, T, zero], dim=1)], dim=1)
+    res = (torch.cat([acc, torch.stack([Med, T, zero], dim=1)], dim=1), torch.stack(chunk_t, dim=1))
     if with_last:
-        return out, torch.stack(chunk_t, dim=1), (n_last - 1).to(torch.int32)
-    return out, torch.stack(chunk_t, dim=1)
+        res += ((n_last - 1).to(torch.int32),)
+    if with_visit:
+        res += (torch.stack(visit, dim=1),)
+    return res
+
+
+def _per_warp(apply: torch.Tensor) -> torch.Tensor:
+    """``[T, px, K]`` -> ``[T, px / 32, K]``: whether any pixel of each group
+    of 32 consecutive pixels (a warp of the kernels) applied the slot."""
+    n_tiles, px, K = apply.shape
+    return apply.reshape(n_tiles, px // 32, 32, K).any(dim=2)
+
+
+def _visit_words(warp_apply: torch.Tensor) -> torch.Tensor:
+    """``[T, W, K]`` bool -> ``[T, W, ceil(K / 32)]`` int32 words, bit b of
+    word j for slot 32 j + b (two's complement for bit 31)."""
+    n_tiles, n_warps, K = warp_apply.shape
+    pad = -K % 32
+    a = torch.nn.functional.pad(warp_apply, (0, pad)) if pad else warp_apply
+    bits = a.reshape(n_tiles, n_warps, (K + pad) // 32, 32).long()
+    w = (bits << torch.arange(32, device=a.device)).sum(-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
 def _check_tile_shape(cfg: RasterConfig) -> None:

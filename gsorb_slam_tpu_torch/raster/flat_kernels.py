@@ -122,22 +122,34 @@ def blend_flat_forward_plain(
     cam: Camera,
     cfg: RasterConfig,
     pairs: dict[str, int] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4's plain version: ``(out [T, 8, px], chunk_t [MC, px], last
-    [T, px])`` as the kernel writes them; differentiable w.r.t. ``packed``
-    through ``out`` (not the median row). ``pairs`` as in ``blend_tiles``,
-    over each tile's live instances (the kernel also evaluates the padding
-    slots of a tile's last chunk, which carry opacity 0 and change
-    nothing)."""
+    [T, px], visit [MC, px / 32, ceil(K / 32)])`` as the kernel writes them;
+    differentiable w.r.t. ``packed`` through ``out`` (not the median row).
+    ``visit`` holds K5's visit words (int32; bit b of word j of warp w is
+    set iff one of the warp's 32 pixels applied slot 32 j + b of the
+    chunk; zero for dead chunks). ``pairs`` as in ``blend_tiles``, over
+    each tile's live instances (the kernel also evaluates the padding slots
+    of a tile's last chunk, which carry opacity 0 and change nothing)."""
     ty, tx = tile_grid_shape(cam, cfg)
     n_tiles = ty * tx
     K = packed.shape[2]
+    out, chunk_t, last, visit = _blend_per_tile(packed, cbins, cam, cfg, pairs=pairs,
+                                                with_last=True, with_visit=True)
+    return (out, _to_flat(chunk_t.detach(), cbins, n_tiles, K), last,
+            _to_flat(visit, cbins, n_tiles, K))
+
+
+def _blend_per_tile(packed: torch.Tensor, cbins: ChunkBins, cam: Camera, cfg: RasterConfig,
+                    **kw) -> tuple[torch.Tensor, ...]:
+    """``blend_tiles`` over the flat chunks laid back out per tile."""
+    ty, tx = tile_grid_shape(cam, cfg)
+    n_tiles = ty * tx
     dense, counts, _ = _tile_layout(cbins, n_tiles)
     pu, pv = tile_pixels(torch.arange(n_tiles, device=packed.device), tx,
                          cfg.tile_w_px, cfg.tile_h_px)
-    out, chunk_t, last = blend_tiles(_per_tile(packed, dense), counts, pu, pv, K,
-                                     cfg.exact_stop, False, pairs, with_last=True)
-    return out, _to_flat(chunk_t.detach(), cbins, n_tiles, K), last
+    return blend_tiles(_per_tile(packed, dense), counts, pu, pv, packed.shape[2],
+                       cfg.exact_stop, False, **kw)
 
 
 def blend_flat_backward_plain(
@@ -197,6 +209,11 @@ def cotangent_without_gate_edges(
 # ---------------------------------------------------------------------------
 
 
+def _words(K: int) -> int:
+    """Visit words per warp and chunk: one per 32 slots."""
+    return -(-K // 32)
+
+
 def _flat_args(packed: torch.Tensor, cbins: ChunkBins, cam: Camera, cfg: RasterConfig):
     _check_tile_shape(cfg)
     ty, tx = tile_grid_shape(cam, cfg)
@@ -210,11 +227,12 @@ def _flat_args(packed: torch.Tensor, cbins: ChunkBins, cam: Camera, cfg: RasterC
 
 def blend_flat_forward(
     packed: torch.Tensor, cbins: ChunkBins, cam: Camera, cfg: RasterConfig
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4: the flat-chunk forward blend -> ``(out [T, 8, px], chunk_t
-    [MC, px], last [T, px])``. CUDA tensors launch the kernel, CPU tensors
-    take :func:`blend_flat_forward_plain`. Forward only: differentiate
-    through :func:`blend_flat`."""
+    [MC, px], last [T, px], visit [MC, px / 32, ceil(K / 32)])``, the last
+    three K5's residuals. CUDA tensors launch the kernel, CPU tensors take
+    :func:`blend_flat_forward_plain`. Forward only: differentiate through
+    :func:`blend_flat`."""
     if not packed.is_cuda:
         return blend_flat_forward_plain(packed, cbins, cam, cfg)
     if torch.is_grad_enabled() and packed.requires_grad:
@@ -223,15 +241,16 @@ def blend_flat_forward(
     out = torch.empty((n_tiles, 8, px), dtype=torch.float32, device=dev)
     chunk_t = torch.zeros((MC, px), dtype=torch.float32, device=dev)
     last = torch.empty((n_tiles, px), dtype=torch.int32, device=dev)
+    visit = torch.zeros((MC, px // 32, _words(K)), dtype=torch.int32, device=dev)
     lib = _build.library()
     _build.count_launch("blend_flat_fwd")
     err = lib.gsorb_blend_flat_fwd(
         packed.data_ptr(), cbins.tile_start.data_ptr(), out.data_ptr(), chunk_t.data_ptr(),
-        last.data_ptr(), n_tiles, K, tx, cfg.tile_w_px, cfg.tile_h_px, int(cfg.exact_stop),
-        _build.stream_handle(dev),
+        last.data_ptr(), visit.data_ptr(), n_tiles, K, tx, cfg.tile_w_px, cfg.tile_h_px,
+        int(cfg.exact_stop), _build.stream_handle(dev),
     )
     _build.check(err, "blend_flat_fwd")
-    return out, chunk_t, last
+    return out, chunk_t, last, visit
 
 
 def blend_flat_backward(
@@ -240,14 +259,16 @@ def blend_flat_backward(
     out: torch.Tensor,  # [T, 8, px] from K4
     chunk_t: torch.Tensor,  # [MC, px] from K4
     last: torch.Tensor,  # [T, px] from K4
+    visit: torch.Tensor,  # [MC, px / 32, ceil(K / 32)] from K4
     g_out: torch.Tensor,  # [T, 8, px] cotangent of out
     cam: Camera,
     cfg: RasterConfig,
 ) -> torch.Tensor:
     """K5: the flat-chunk backward -> ``grads [MC, 16, K]`` (rows d_mu,
     d_mv, d_ca, d_cb, d_cc, d_op, d_r, d_g, d_b, d_z; rows 10-15 zero).
-    ``out, chunk_t, last`` are K4's results, in the order
-    :func:`blend_flat_forward` returns them.
+    ``out, chunk_t, last, visit`` are K4's results, in the order
+    :func:`blend_flat_forward` returns them. The kernel writes every
+    element, dead chunks included.
     CUDA tensors launch the kernel, CPU tensors take
     :func:`blend_flat_backward_plain` (which needs none of K4's
     residuals)."""
@@ -258,13 +279,14 @@ def blend_flat_backward(
     _build.check_tensor(last, "last", torch.int32, (n_tiles, px), dev)
     _build.check_tensor(out, "out", torch.float32, (n_tiles, 8, px), dev)
     _build.check_tensor(g_out, "g_out", torch.float32, (n_tiles, 8, px), dev)
-    grads = torch.zeros((MC, N_ATTR, K), dtype=torch.float32, device=dev)
+    _build.check_tensor(visit, "visit", torch.int32, (MC, px // 32, _words(K)), dev)
+    grads = torch.empty((MC, N_ATTR, K), dtype=torch.float32, device=dev)
     lib = _build.library()
     _build.count_launch("blend_flat_bwd")
     err = lib.gsorb_blend_flat_bwd(
         packed.data_ptr(), cbins.tile_start.data_ptr(), chunk_t.data_ptr(), last.data_ptr(),
-        out.data_ptr(), g_out.data_ptr(), grads.data_ptr(), n_tiles, K, tx,
-        cfg.tile_w_px, cfg.tile_h_px, _build.stream_handle(dev),
+        visit.data_ptr(), out.data_ptr(), g_out.data_ptr(), grads.data_ptr(), n_tiles, MC, K,
+        tx, cfg.tile_w_px, cfg.tile_h_px, _build.stream_handle(dev),
     )
     _build.check(err, "blend_flat_bwd")
     return grads
@@ -275,15 +297,15 @@ class _BlendFlat(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packed, cbins, cam, cfg):
-        out, chunk_t, last = blend_flat_forward(packed, cbins, cam, cfg)
-        ctx.save_for_backward(packed, out, chunk_t, last)
+        out, chunk_t, last, visit = blend_flat_forward(packed, cbins, cam, cfg)
+        ctx.save_for_backward(packed, out, chunk_t, last, visit)
         ctx.cbins, ctx.cam, ctx.cfg = cbins, cam, cfg
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        packed, out, chunk_t, last = ctx.saved_tensors
-        grads = blend_flat_backward(packed, ctx.cbins, out, chunk_t, last,
+        packed, out, chunk_t, last, visit = ctx.saved_tensors
+        grads = blend_flat_backward(packed, ctx.cbins, out, chunk_t, last, visit,
                                     g_out.contiguous(), ctx.cam, ctx.cfg)
         return grads, None, None, None
 
@@ -295,7 +317,7 @@ def blend_flat(
     CUDA tensors, autograd through the plain forward for CPU tensors."""
     if packed.is_cuda:
         return _BlendFlat.apply(packed, cbins, cam, cfg)
-    return blend_flat_forward_plain(packed, cbins, cam, cfg)[0]
+    return _blend_per_tile(packed, cbins, cam, cfg)[0]
 
 
 def render_flat(

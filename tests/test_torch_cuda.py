@@ -17,7 +17,7 @@ from gsorb_slam_tpu_torch import _build
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.core.transforms import pose_to_matrix
 from gsorb_slam_tpu_torch.raster import RasterConfig, bin_gaussians, preprocess, render
-from gsorb_slam_tpu_torch.raster.binning import chunk_layout, tile_grid_shape
+from gsorb_slam_tpu_torch.raster.binning import TileBins, chunk_layout, tile_grid_shape
 from gsorb_slam_tpu_torch.raster.blend_kernels import (
     blend_backward,
     blend_backward_plain,
@@ -27,6 +27,8 @@ from gsorb_slam_tpu_torch.raster.blend_kernels import (
     pack_instances,
     tile_cotangent_without_gate_edges,
     tile_gt_images,
+    tile_pixels,
+    tracking_blend,
     tracking_loss_grad,
     tracking_loss_grad_plain,
 )
@@ -149,15 +151,15 @@ def test_k5_exact_stop_with_background(dev):
     bins = bin_gaussians(prep.detach(), CAM, cfg)
     cbins = chunk_layout(bins, ty * tx, cfg.chunk, 512)
     packed = pack_instances_flat(prep.detach(), cbins)
-    out, chunk_t, last = blend_flat_forward(packed, cbins, CAM, cfg)
-    out_p, chunk_t_p, last_p = blend_flat_forward_plain(packed, cbins, CAM, cfg)
+    out, chunk_t, last, visit = blend_flat_forward(packed, cbins, CAM, cfg)
+    out_p, chunk_t_p, last_p, _ = blend_flat_forward_plain(packed, cbins, CAM, cfg)
     torch.testing.assert_close(out, out_p, atol=2e-3, rtol=0)
     torch.testing.assert_close(chunk_t, chunk_t_p, atol=2e-3, rtol=0)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0)).to(dev)
     g[:, 5] = g[:, 7] = 0.0
     g, _ = cotangent_without_gate_edges(packed, cbins, g, CAM, cfg)
     n0 = _build.launches["blend_flat_bwd"]
-    d_k = blend_flat_backward(packed, cbins, out, chunk_t, last, g, CAM, cfg)
+    d_k = blend_flat_backward(packed, cbins, out, chunk_t, last, visit, g, CAM, cfg)
     assert _build.launches["blend_flat_bwd"] == n0 + 1
     d_p = blend_flat_backward_plain(packed, cbins, g, CAM, cfg)
     torch.testing.assert_close(d_k, d_p, atol=8e-4, rtol=2e-3)
@@ -166,7 +168,7 @@ def test_k5_exact_stop_with_background(dev):
     aux = flat_pack_grad_aux(cbins.indices, means.shape[0])
     (g_k,) = torch.autograd.grad((render_flat(prep, cbins, CAM, cfg, bg, aux).color * w).sum(),
                                  means, retain_graph=True)
-    out_p, _, _ = blend_flat_forward_plain(pack_instances_flat(prep, cbins), cbins, CAM, cfg)
+    out_p = blend_flat_forward_plain(pack_instances_flat(prep, cbins), cbins, CAM, cfg)[0]
     color_p = render_output_from_tiles(out_p, CAM, cfg, bg, prep.radius).color
     (g_p,) = torch.autograd.grad((color_p * w).sum(), means)
     assert float((g_k - g_p).abs().max() / g_p.abs().max()) < 2e-2
@@ -318,3 +320,204 @@ def test_render_differentiates_through_k6(dev):
     for n, a, b in zip(names, g_k, grads("cpu")):
         assert float((a.cpu() - b).abs().max() / b.abs().max()) < 2e-2, n
     assert all(torch.equal(a, b) for a, b in zip(g_k, grads(dev)))
+
+
+# ---- the visit words of K1 / K7 / K8 and K4 / K5 ----
+#
+# A synthetic pack at capacity 512, chunk 256, one tile of each kind:
+#   full      count == capacity, random splats: pixels stop in different
+#             words, some past the chunk boundary;
+#   straddle  four splats covering the tile at slots 31, 32, 255 and 256
+#             (across a word and across the chunk boundary), the other
+#             live slots dead (opacity 0);
+#   single    one pixel applies slot 37 (a splat too narrow to reach its
+#             neighbours), every pixel a wide splat at slot 100;
+#   empty     count == 0.
+WORD_CAP = 512
+WORD_K = 256
+
+
+def _word_pack(dev, kinds, tile_ids, ts_y, tiles_x=2, seed=0):
+    gen = np.random.default_rng(seed)
+    pk = np.zeros((len(kinds), 16, WORD_CAP), np.float32)
+    counts = np.zeros(len(kinds), np.int32)
+
+    def splat(t, s, u, v, sigma, op):
+        pk[t, 0:6, s] = (u, v, 1.0 / sigma ** 2, 0.0, 1.0 / sigma ** 2, op)
+
+    for t, (kind, tid) in enumerate(zip(kinds, tile_ids)):
+        ox, oy = (tid % tiles_x) * 16, (tid // tiles_x) * ts_y
+        cx, cy = ox + 7.5, oy + ts_y / 2 - 0.5
+        if kind == "full":
+            n = WORD_CAP
+            for s in range(n):
+                splat(t, s, ox + gen.uniform(-4, 20), oy + gen.uniform(-4, ts_y + 4),
+                      gen.uniform(1.5, 4.0), gen.uniform(0.05, 0.4))
+        elif kind == "straddle":
+            n = 300
+            for s in (31, 32, 255, 256):
+                splat(t, s, cx, cy, 12.0, 0.8)
+        elif kind == "single":
+            n = 120
+            splat(t, 37, ox + 3, oy + 5, 1.0 / np.sqrt(20.0), 0.95)
+            splat(t, 100, cx, cy, 12.0, 0.99)
+        else:
+            n = 0
+        counts[t] = n
+        pk[t, 6:9, :n] = gen.uniform(0.1, 1.0, (3, n))
+        pk[t, 9, :n] = 1.0 + 0.01 * np.arange(n)
+        pk[t, 10, :n] = 1.0
+    return torch.as_tensor(pk, device=dev), torch.as_tensor(counts, device=dev)
+
+
+def _word_gt(dev, n_tiles, px, seed=1):
+    gen = np.random.default_rng(seed)
+    gt = np.concatenate([gen.uniform(0, 1, (n_tiles, 3, px)), np.full((n_tiles, 1, px), 1.5)], 1)
+    return torch.as_tensor(gt.astype(np.float32), device=dev)
+
+
+def _check_words_reached(g, counts):
+    """The gradient rows reach the slots each tile kind was built for."""
+    assert bool(g[0, :10, 256:].abs().sum() > 0)  # past the chunk boundary
+    assert bool((g[1, :10][:, [31, 32, 255, 256]].abs().sum(0) > 0).all())
+    assert bool(g[2, :10, 37].abs().sum() > 0)
+    assert int(counts[3]) == 0 and not g[3].any()
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_k1_k7_visit_words_match_plain(dev, exact):
+    """K1 (fast) and K7 (exact) on the word edge cases against their plain
+    versions (loss 1e-3 relative, gradients 8e-4 + 2e-3 |p| with the
+    loss-edge pixels left out), and K1 / K7 rerun bit for bit."""
+    cam = Camera(fx=30.0, fy=30.0, cx=16.0, cy=16.0, width=32, height=32)
+    cfg = RasterConfig(tile=16, tile_capacity=WORD_CAP, chunk=WORD_K, exact_stop=exact)
+    packed, counts = _word_pack(dev, ("full", "straddle", "single", "empty"), range(4), 16)
+    gt4 = _word_gt(dev, 4, 256)
+    pairs = {}
+    tracking_blend(packed, counts, cam, cfg, pairs=pairs)
+    assert pairs["applied"] < pairs["warp_visits"] < pairs["to_last"]
+    for use_sur in (True, False):
+        img_k, dep_k, _ = tracking_loss_grad(packed, counts, gt4, cam, cfg, 0.7, 1.0, use_sur)
+        img_p, dep_p, _ = tracking_loss_grad_plain(packed, counts, gt4, cam, cfg, 0.7, 1.0,
+                                                   use_sur)
+        torch.testing.assert_close(img_k + dep_k, img_p + dep_p, rtol=1e-3, atol=0)
+        gt_e, _ = gt_without_loss_edges(packed, counts, gt4, cam, cfg)
+        _, _, g_k = tracking_loss_grad(packed, counts, gt_e, cam, cfg, 0.7, 1.0, use_sur)
+        _, _, g_p = tracking_loss_grad_plain(packed, counts, gt_e, cam, cfg, 0.7, 1.0, use_sur)
+        torch.testing.assert_close(g_k, g_p, atol=8e-4, rtol=2e-3)
+        _check_words_reached(g_k, counts)
+        assert torch.equal(tracking_loss_grad(packed, counts, gt_e, cam, cfg, 0.7, 1.0,
+                                              use_sur)[2], g_k)
+
+
+def test_k8_visit_words_match_plain(dev):
+    """K8 on the word edge cases, each pair of 16x8 tiles a block: a pair
+    with one empty tile (full + empty) and one of two sparse tiles."""
+    cam = Camera(fx=30.0, fy=30.0, cx=16.0, cy=8.0, width=32, height=16)
+    cfg = RasterConfig(tile=16, tile_h=8, tile_capacity=WORD_CAP, chunk=WORD_K,
+                       exact_stop=False, paired=True)
+    perm = torch.arange(4, dtype=torch.int32, device=dev)
+    packed, counts = _word_pack(dev, ("full", "straddle", "single", "empty"), range(4), 8)
+    # Pair-major rows: (full, empty) and (straddle, single).
+    order = torch.tensor([0, 3, 1, 2], device=dev)
+    packed, counts, perm = packed[order].contiguous(), counts[order].contiguous(), perm[order]
+    rows = _word_gt(dev, 4, 128)
+    for use_sur in (True, False):
+        gt = pair_gt_rows(rows)
+        img_k, dep_k, _ = tracking_loss_grad_paired(packed, counts, gt, cam, cfg, 0.7, 1.0,
+                                                    use_sur, tile_ids=perm)
+        img_p, dep_p, _ = tracking_loss_grad_paired_plain(packed, counts, gt, cam, cfg, 0.7,
+                                                          1.0, use_sur, tile_ids=perm)
+        torch.testing.assert_close(img_k + dep_k, img_p + dep_p, rtol=1e-3, atol=0)
+        gt_e, _ = gt_without_loss_edges(packed, counts, rows, cam, cfg, tile_ids=perm)
+        gt_e = pair_gt_rows(gt_e)
+        _, _, g_k = tracking_loss_grad_paired(packed, counts, gt_e, cam, cfg, 0.7, 1.0,
+                                              use_sur, tile_ids=perm)
+        _, _, g_p = tracking_loss_grad_paired_plain(packed, counts, gt_e, cam, cfg, 0.7, 1.0,
+                                                    use_sur, tile_ids=perm)
+        torch.testing.assert_close(g_k, g_p, atol=8e-4, rtol=2e-3)
+        _check_words_reached(g_k[torch.tensor([0, 2, 3, 1], device=dev)], counts[[0, 2, 3, 1]])
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_k4_k5_visit_words_match_plain(dev, exact):
+    """K4's visit words equal its plain version's exactly; K5 on the word
+    edge cases against its plain version under a seeded random cotangent
+    (gate-edge pixels left out), its dead budget chunks written as zeros
+    (the output is not zero-filled first), and two launches bit for bit."""
+    cam = Camera(fx=30.0, fy=30.0, cx=16.0, cy=16.0, width=32, height=32)
+    cfg = RasterConfig(tile=16, tile_capacity=WORD_CAP, chunk=WORD_K, exact_stop=exact)
+    tiled, counts = _word_pack(dev, ("full", "straddle", "single", "empty"), range(4), 16)
+    k = torch.arange(WORD_CAP, device=dev)
+    idx = torch.arange(4, device=dev)[:, None] * WORD_CAP + k[None, :]
+    bins = TileBins(torch.where(k[None, :] < counts[:, None].long(), idx, -1).to(torch.int32),
+                    counts, torch.zeros((), dtype=torch.int32, device=dev))
+    cbins = chunk_layout(bins, 4, WORD_K, 8)
+    n_live = int(cbins.n_chunks)
+    assert n_live == 5
+    cols = torch.cat([tiled.transpose(1, 2).reshape(-1, 16), tiled.new_zeros((1, 16))])
+    flat = torch.where(cbins.indices < 0, 4 * WORD_CAP, cbins.indices).long()
+    packed = cols[flat].reshape(8, WORD_K, 16).transpose(1, 2).contiguous()
+    out, chunk_t, last, visit = blend_flat_forward(packed, cbins, cam, cfg)
+    out_p, chunk_t_p, last_p, visit_p = blend_flat_forward_plain(packed, cbins, cam, cfg)
+    torch.testing.assert_close(out, out_p, atol=2e-3, rtol=0)
+    assert torch.equal(visit, visit_p) and bool(visit[:n_live].any())
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)).to(dev)
+    g[:, 5] = g[:, 7] = 0.0
+    g, _ = cotangent_without_gate_edges(packed, cbins, g, cam, cfg)
+    torch.empty((8, 16, WORD_K), device=dev).fill_(float("nan"))  # the block K5 gets next
+    d_k = blend_flat_backward(packed, cbins, out, chunk_t, last, visit, g, cam, cfg)
+    d_p = blend_flat_backward_plain(packed, cbins, g, cam, cfg)
+    torch.testing.assert_close(d_k, d_p, atol=8e-4, rtol=2e-3)
+    assert not d_k[n_live:].any() and not d_k[:, 10:].any()
+    assert bool(d_k[4, :10, 37].abs().sum() > 0)  # the single lane's slot
+    assert torch.equal(blend_flat_backward(packed, cbins, out, chunk_t, last, visit, g, cam,
+                                           cfg), d_k)
+
+
+@pytest.mark.parametrize("kind", ["K1", "K7", "K8", "K9"])
+def test_tracking_kernels_at_capacity_2048(dev, kind):
+    """The tracking kernels' shared memory does not grow with the capacity
+    (each backward window is staged from global memory): the word pack
+    padded with dead slots to capacity 2048 launches and gives the loss and
+    the gradients of capacity 512 bit for bit, zeros in the padding, and
+    the plain version's loss within 1e-3 relative; two launches bit for
+    bit."""
+    paired = kind == "K8"
+    ts_y = 8 if paired else 16
+    cam = Camera(fx=30.0, fy=30.0, cx=16.0, cy=ts_y / 2, width=32, height=2 * ts_y)
+    cfg = RasterConfig(tile=16, tile_h=ts_y, tile_capacity=WORD_CAP, chunk=WORD_K,
+                       exact_stop=kind == "K7", paired=paired)
+    packed, counts = _word_pack(dev, ("full", "straddle", "single", "empty"), range(4), ts_y)
+    rows = _word_gt(dev, 4, 16 * ts_y)
+    if paired:
+        order = torch.tensor([0, 3, 1, 2], device=dev)
+        packed, counts = packed[order].contiguous(), counts[order].contiguous()
+        perm = order.to(torch.int32)
+        gt = pair_gt_rows(rows)
+
+        def run(pk):
+            return tracking_loss_grad_paired(pk, counts, gt, cam, cfg, 0.7, 1.0, False,
+                                             tile_ids=perm)
+
+        plain = tracking_loss_grad_paired_plain(packed, counts, gt, cam, cfg, 0.7, 1.0, False,
+                                                tile_ids=perm)
+    elif kind == "K9":
+        def run(pk):
+            return tracking_loss_grad_ablate(pk, rows, cam, cfg, 0.7, 1.0, False)
+
+        plain = tracking_loss_grad_ablate_plain(packed, rows, cam, cfg, 0.7, 1.0, False)
+    else:
+        def run(pk):
+            return tracking_loss_grad(pk, counts, rows, cam, cfg, 0.7, 1.0, False)
+
+        plain = tracking_loss_grad_plain(packed, counts, rows, cam, cfg, 0.7, 1.0, False)
+    img, dep, g = run(packed)
+    cap = 2048
+    img_r, dep_r, g_r = run(torch.nn.functional.pad(packed, (0, cap - WORD_CAP)).contiguous())
+    assert torch.equal(img_r, img) and torch.equal(dep_r, dep)
+    assert torch.equal(g_r[..., :WORD_CAP], g) and not g_r[..., WORD_CAP:].any()
+    assert bool(g[..., :WORD_CAP].abs().sum() > 0)
+    torch.testing.assert_close(img_r + dep_r, plain[0] + plain[1], rtol=1e-3, atol=0)
+    assert torch.equal(run(torch.nn.functional.pad(packed, (0, cap - WORD_CAP)).contiguous())[2],
+                       g_r)

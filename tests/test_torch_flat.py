@@ -145,11 +145,14 @@ def test_flat_wrappers_take_plain_on_cpu(rng):
     cfg, cam = RasterConfig(**CFG_KW, exact_stop=False), Camera(**CAM_KW)
     cb = chunk_layout(_port_bins(bins), N_TILES, 64, 64)
     packed = pack_instances_flat(_port_prep(prep), cb)
-    out, chunk_t, last = blend_flat_forward(packed, cb, cam, cfg)
+    out, chunk_t, last, visit = blend_flat_forward(packed, cb, cam, cfg)
     pairs = {}
-    out_p, chunk_t_p, last_p = blend_flat_forward_plain(packed, cb, cam, cfg, pairs=pairs)
+    out_p, chunk_t_p, last_p, visit_p = blend_flat_forward_plain(packed, cb, cam, cfg,
+                                                                 pairs=pairs)
     assert torch.equal(out, out_p) and torch.equal(chunk_t, chunk_t_p)
     assert torch.equal(last, last_p) and last.dtype == torch.int32
+    assert torch.equal(visit, visit_p) and visit.dtype == torch.int32
+    assert visit.shape == (64, 8, 2) and not visit[int(cb.n_chunks):].any()
     n_live = int(cb.n_chunks)
     assert chunk_t.shape == (64, 256) and not chunk_t[n_live:].any()
     first = cb.tile_start[:-1][cb.tile_start[1:] > cb.tile_start[:-1]].long()
@@ -157,7 +160,7 @@ def test_flat_wrappers_take_plain_on_cpu(rng):
     assert int(last.max()) < 4 * 64 and int(last.min()) == -1
     assert 0 < pairs["applied"] < pairs["evaluated"]
     g = torch.as_tensor(rng.normal(size=out.shape).astype(np.float32))
-    d = blend_flat_backward(packed, cb, out, chunk_t, last, g, cam, cfg)
+    d = blend_flat_backward(packed, cb, out, chunk_t, last, visit, g, cam, cfg)
     torch.testing.assert_close(blend_flat_backward_plain(packed, cb, g, cam, cfg, tile_batch=5),
                                d, atol=1e-6, rtol=1e-6)
     assert d.shape == (64, 16, 64) and not d[:, 10:].any() and not d[n_live:].any()
@@ -165,6 +168,54 @@ def test_flat_wrappers_take_plain_on_cpu(rng):
     x = packed.clone().requires_grad_(True)
     (d_auto,) = torch.autograd.grad(blend_flat(x, cb, cam, cfg), x, g)
     torch.testing.assert_close(d_auto, d, atol=1e-6, rtol=1e-6)
+
+
+def _visit_words_per_pixel(packed, cb, exact):
+    """K4's visit words by a per-pixel loop over each tile's flat chunks in
+    order: bit b of word j of warp w of chunk c is set iff one of the warp's
+    32 pixels applied slot 32 j + b of chunk c."""
+    MC, _, K = packed.shape
+    words = np.zeros((MC, 256 // 32, K // 32), np.int64)
+    starts = cb.tile_start.numpy()
+    for t in range(N_TILES):
+        for p in range(256):
+            pu, pv = (t % 4) * 16 + p % 16, (t // 4) * 16 + p // 16
+            T, done = 1.0, False
+            for c in range(starts[t], starts[t + 1]):
+                for k in range(K):
+                    if done:
+                        break
+                    mu, mv, ca, cb_, cc, op = (float(x) for x in packed[c, :6, k])
+                    d0, d1 = np.float32(mu - pu), np.float32(mv - pv)
+                    power = -0.5 * (ca * d0 * d0 + cc * d1 * d1) - cb_ * d0 * d1
+                    alpha = min(0.99, op * np.exp(power))
+                    if power > 0 or alpha < 1.0 / 255.0:
+                        continue
+                    Tn = T * (1.0 - alpha)
+                    if exact and Tn < 1e-4:
+                        done = True
+                        break
+                    words[c, p // 32, k // 32] |= 1 << (k % 32)
+                    T = Tn
+                    done = not exact and T < 1e-4
+    return np.where(words >= 1 << 31, words - (1 << 32), words).astype(np.int32)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_flat_visit_words_match_per_pixel_loop(rng, exact):
+    """The visit words of K4's plain version (K5's residual) equal a
+    brute-force per-pixel loop's, under both stop rules; their set bits
+    are the (warp, slot) pairs K5 walks."""
+    _, _, prep, bins = _jax_scene(rng, exact)
+    cfg, cam = RasterConfig(**CFG_KW, exact_stop=exact), Camera(**CAM_KW)
+    cb = chunk_layout(_port_bins(bins), N_TILES, 64, 64)
+    packed = pack_instances_flat(_port_prep(prep), cb)
+    pairs = {}
+    visit = blend_flat_forward_plain(packed, cb, cam, cfg, pairs=pairs)[3]
+    ref = _visit_words_per_pixel(packed.numpy(), cb, exact)
+    np.testing.assert_array_equal(visit.numpy(), ref)
+    bits = sum(bin(int(w) & 0xFFFFFFFF).count("1") for w in ref.reshape(-1))
+    assert 0 < bits and pairs["warp_visits"] == 32 * bits
 
 
 def test_sorted_pack_backward_matches_scatter(rng):

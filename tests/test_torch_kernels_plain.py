@@ -170,9 +170,11 @@ def test_k3_plain_matches_pallas(rng, exact):
 
 def _pair_counts_per_pixel(packed, counts, pu, pv, exact):
     """The kernels' per-pixel loop, instance by instance, counting the
-    evaluated and applied (pixel, instance) pairs and the pairs up to each
-    pixel's last applied instance."""
-    n_eval = n_apply = n_last = 0
+    evaluated and applied (pixel, instance) pairs, the pairs up to each
+    pixel's last applied instance and the (lane, slot) pairs the backward
+    walks: 32 for every slot some pixel of a warp (32 consecutive pixels)
+    applied."""
+    n_eval = n_apply = n_last = n_visit = 0
     for t in range(packed.shape[0]):
         T = np.ones(pu.shape[1])
         live = np.ones(pu.shape[1], bool)
@@ -189,12 +191,13 @@ def _pair_counts_per_pixel(packed, counts, pu, pv, exact):
                 live &= ~(hit & (Tn < 1e-4))
                 hit &= live
             n_apply += int(hit.sum())
+            n_visit += 32 * int(hit.reshape(-1, 32).any(axis=1).sum())
             last = np.where(hit, k + 1, last)
             T = np.where(hit, Tn, T)
             if not exact:
                 live &= T >= 1e-4
         n_last += int(last.sum())
-    return dict(evaluated=n_eval, applied=n_apply, to_last=n_last)
+    return dict(evaluated=n_eval, applied=n_apply, to_last=n_last, warp_visits=n_visit)
 
 
 @pytest.mark.parametrize("exact", [True, False])
@@ -216,6 +219,34 @@ def test_blend_pair_counts_match_per_pixel_loop(rng, exact):
     ref = _pair_counts_per_pixel(packed, np.asarray(bins.counts), pu, pv, exact)
     assert pairs == ref
     assert ref["applied"] < ref["evaluated"] and ref["to_last"] <= ref["evaluated"]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("tile_h", [16, 8])
+def test_warp_visits_match_per_pixel_loop(rng, exact, tile_h):
+    """The backward's (lane, slot) pairs that ``tracking_blend`` reports for
+    K1 / K7 (square tiles) and K8 (16x8 rect tiles, counted per tile half)
+    equal a per-pixel loop's: 32 x the distinct applied slots of each warp.
+    The word-driven walk visits far fewer pairs than the walk to each
+    pixel's last applied slot."""
+    jc = JCamera(**CAM_KW)
+    kw = dict(CFG_KW, tile_h=tile_h)
+    scene = random_cloud_scene(rng, n=350, capacity=384)
+    scene["logit_opacities"] = jnp.full_like(scene["logit_opacities"], 3.0)
+    prep = _prep(scene)
+    bins = jbin(prep, jc, JRasterConfig(**kw))
+    packed = np.asarray(jpack(prep, bins), np.float64)
+    cfg = RasterConfig(**kw, exact_stop=exact)
+    pairs = {}
+    tracking_blend(_t(packed).float(), _t(bins.counts), Camera(**CAM_KW), cfg, pairs=pairs)
+    n_tiles = packed.shape[0]
+    tiles_x = 64 // 16
+    loc = np.arange(16 * tile_h)
+    pu = (np.arange(n_tiles) % tiles_x)[:, None] * 16 + loc % 16
+    pv = (np.arange(n_tiles) // tiles_x)[:, None] * tile_h + loc // 16
+    ref = _pair_counts_per_pixel(packed, np.asarray(bins.counts), pu, pv, exact)
+    assert pairs["warp_visits"] == ref["warp_visits"]
+    assert pairs["applied"] < pairs["warp_visits"] < pairs["to_last"]
 
 
 def test_gt_without_loss_edges():

@@ -271,3 +271,29 @@ def test_profilers_need_a_card_or_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--cpu"):
         profile_gather.main(["--width", "64", "--height", "48", "--splats", "100"])
+
+
+def test_count_pairs_batches_add_up():
+    """``count_pairs`` counts a view tile batch by tile batch: the sums
+    equal one blend over every tile, and each warp visits at least the
+    pairs its lanes applied."""
+    from gsorb_slam_tpu_torch.profiling import count_pairs
+
+    res = count_pairs.main(SMALL + ["--tile-batch", "5"])
+    whole = count_pairs.main(SMALL + ["--tile-batch", "1000"])
+    assert res["device"] == "cpu"
+    for name in ("K1", "K7", "K8", "K3 / K6 (render bins)"):
+        assert res[name] == whole[name]
+        assert 0 < res[name]["applied"] <= res[name]["warp_visits"]
+
+
+def test_compare_trees_needs_a_card(monkeypatch):
+    """The tree comparison (``compare_trees.py`` at the repository's root)
+    measures on the card only."""
+    spec = importlib.util.spec_from_file_location("compare_trees", ROOT / "compare_trees.py")
+    compare_trees = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(compare_trees)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="card"):
+        compare_trees.main(["--run", "change=."])
