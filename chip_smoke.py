@@ -16,7 +16,12 @@ Phases (any failed check makes the exit code non-zero):
 1. the card's name and power limit; the kernel build;
 2. K3 (forward blend) against its plain version at render capacity 2048;
 3. K2f / K2b (instance projection and its pose adjoint) against their plain
-   versions on the tracking pack at a pose 1 cm off;
+   versions on the tracking pack at a pose 1 cm off; K2b (after phase 4,
+   on K1's gradients) also in one launch (the wrapper's count and
+   torch.profiler's), bit for bit on a rerun, and on the adjoint's
+   edge-case pack (``adjoint_edge_pack``: near plane, clips, det <= 0,
+   dead slots, zero cotangents) at T = 7 x cap 300, one tile of one and of
+   two blocks, and T = 0;
 4. K1 (fused tracking iteration) against its plain version: loss,
    per-instance gradients, and the pose gradient through K2b; then K1 on
    the pack padded with dead slots to capacity 2048, bit for bit;
@@ -28,12 +33,14 @@ Phases (any failed check makes the exit code non-zero):
    launched (K1 = K2f = K2b = 200, K3 >= 1);
 6. timings: ms per tracking iteration over 10 more frames (best and
    quartiles; each frame must reproduce the main path's pose bit for bit),
-   a profiled frame, and each kernel's time by CUDA events beside its plain
-   version's and its bound (the work this run's data needs);
+   a profiled frame (its device launches per iteration), and each kernel's
+   time by CUDA events beside its plain version's and its bound (the work
+   this run's data needs);
 7. K4 / K5 (the flat-chunk mapping blend and its backward) against their
    plain versions on the render bins laid out by ``chunk_layout`` with the
    System's chunk budget: K4's rows under both stop rules and its visit
-   words equal to the plain version's, K5's ten gradient rows under a
+   words equal to the plain version's, every visited slot kept by the
+   plain version of K4's footprint cull, K5's ten gradient rows under a
    seeded random cotangent, and the parameter gradients through the pack
    and ``preprocess``;
 8. the mapping step: a window of 4 frames (gt = K3 renders of the map at the
@@ -288,6 +295,44 @@ def check_tracking_kernel(torch, checks, label, kernel, plain, raw, q, t, cam, g
     return err, d_screen, screen
 
 
+def phase_k2b_edges(torch, checks, raw, rt, d_screen, cam, sm) -> None:
+    """Phase 3b: K2b in one launch, bit for bit on a rerun, and against its
+    plain version (1e-3 relative) on ``adjoint_edge_pack``'s edge cases (the
+    near plane, clips both ways, det <= 0, dead slots, zero cotangents) at a
+    capacity that is not a multiple of 256, at one tile of one block, at
+    one tile of two blocks and at T = 0 (zeros)."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.core.camera import Camera
+    from gsorb_slam_tpu_torch.profiling.common import profile_call as profiled
+    from gsorb_slam_tpu_torch.raster.preprocess_kernel import (
+        adjoint_edge_pack,
+        preprocess_bwd,
+        preprocess_bwd_plain,
+    )
+
+    a = preprocess_bwd(raw, rt, d_screen, cam, sm)
+    n0 = _build.launches["preprocess_bwd"]
+    b = preprocess_bwd(raw, rt, d_screen, cam, sm)
+    checks.record("K2b two launches bitwise equal", 0.0, 0.0, ok=bool(torch.equal(a, b)))
+    checks.record("K2b wrapper launches per call", _build.launches["preprocess_bwd"] - n0, 1,
+                  ok=_build.launches["preprocess_bwd"] - n0 == 1)
+    prof = profiled(lambda: preprocess_bwd(raw, rt, d_screen, cam, sm), torch.device(DEVICE))
+    n_dev = None if prof is None else prof["launches"]
+    print(f"# K2b device launches per call (torch.profiler): {n_dev}", flush=True)
+    checks.record("K2b device launches per call (torch.profiler)", -1 if n_dev is None else n_dev,
+                  1, ok=n_dev == 1)
+    edge_cam = Camera(fx=60.0, fy=60.0, cx=32.0, cy=24.0, width=64, height=48)
+    for n_tiles, cap in ((7, 300), (1, 256), (1, 300), (0, 300)):
+        r, q, d, _ = (torch.as_tensor(x).to(DEVICE) for x in adjoint_edge_pack(
+            0, n_tiles, cap, edge_cam))
+        k = preprocess_bwd(r, q, d, edge_cam, 1.1)
+        p = preprocess_bwd_plain(r, q, d, edge_cam, 1.1)
+        same = bool(torch.equal(preprocess_bwd(r, q, d, edge_cam, 1.1), k))
+        err = 0.0 if n_tiles == 0 and not k.any() and not p.any() else rel_err(k, p)
+        checks.record(f"K2b edge pack T={n_tiles} cap={cap} rel-err vs plain", err, 1e-3)
+        checks.record(f"K2b edge pack T={n_tiles} cap={cap} rerun bitwise", 0.0, 0.0, ok=same)
+
+
 def check_capacity_padding(torch, checks, label, kernel, screen, gt, cap: int) -> None:
     """Phases 4 and 11: a tracking kernel's shared memory does not grow with
     the capacity (each backward window is staged from global memory), so
@@ -315,6 +360,7 @@ def phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg) -> dict:
         blend_flat_forward,
         blend_flat_forward_plain,
         cotangent_without_gate_edges,
+        footprint_keep_plain,
         pack_instances_flat,
     )
     from gsorb_slam_tpu_torch.raster.blend_kernels import flat_pack_grad_aux
@@ -354,6 +400,15 @@ def phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg) -> dict:
             print(f"# K4 exact={int(exact)} visit words: {n_words} of {visit_k.numel()} differ "
                   f"from the plain version's; {int(visit_k.ne(0).sum())} non-zero", flush=True)
             checks.record(f"K4 exact={int(exact)} visit words differing", n_words, 0)
+            # K4's footprint cull keeps every slot a warp applied.
+            keep = footprint_keep_plain(packed, cb, cam, cfg)
+            bits = ((visit_k.long() & 0xFFFFFFFF)[..., None]
+                    >> torch.arange(32, device=visit_k.device)) & 1
+            applied = bits.reshape(*visit_k.shape[:2], -1)[..., :rcfg.chunk].bool()
+            n_lost = int((applied & ~keep).sum())
+            print(f"# K4 exact={int(exact)} footprint cull: {int(keep.sum())} (warp, slot) pairs "
+                  f"kept of {keep.numel()}, {int(applied.sum())} applied", flush=True)
+            checks.record(f"K4 exact={int(exact)} applied slots the cull drops", n_lost, 0)
             if not exact:
                 res["k4_err"] = max(worst, err)
                 fwd = (out_k, ct_k, last_k, visit_k)
@@ -1031,14 +1086,17 @@ def phase_profilers(torch, checks) -> dict:
     return out
 
 
-def profile_call(torch, fn, best_s: float, what: str) -> None:
+def profile_call(torch, fn, best_s: float, what: str) -> dict | None:
     """One call of ``fn`` under torch.profiler (``profiling.common.profile_call``):
-    the kernels' device time, its share of the profiled call's wall time and
-    of the best unprofiled call's, and the kernels that take the most."""
+    the kernels' device time and launches, its share of the profiled call's
+    wall time and of the best unprofiled call's, and the kernels that take
+    the most. Returns the profile (None where no device time was seen)."""
     from gsorb_slam_tpu_torch.profiling.common import profile_call as profiled, profile_lines
 
-    for line in profile_lines(profiled(fn, torch.device(DEVICE), best_s * 1e3), what):
+    prof = profiled(fn, torch.device(DEVICE), best_s * 1e3)
+    for line in profile_lines(prof, what):
         print(line, flush=True)
+    return prof
 
 
 def main() -> int:
@@ -1216,6 +1274,7 @@ def main() -> int:
     drt_p = preprocess_bwd_plain(raw, rt1, d_screen, cam, sm)
     k2b_err = float((drt_k - drt_p).abs().max())
     checks.record("K2b pose cotangent rel-err", rel_err(drt_k, drt_p), 1e-3)
+    phase_k2b_edges(torch, checks, raw, rt1, d_screen, cam, sm)
 
     # ---- 5. the main path ----
     T_init = torch.eye(4, device=dev)
@@ -1291,9 +1350,12 @@ def main() -> int:
           f"rebins: best {ms_iter:.4f}, quartiles {q25:.4f} / {q50:.4f} / {q75:.4f}; frames "
           f"{', '.join(f'{s:.4f}' for s in frame_s)} s", flush=True)
 
-    profile_call(torch, lambda: track_frame(gm, T_init, gt_color, gt_depth, matches, cam, tcfg,
-                                            rcfg_t, rebin_iters=REBINS),
-                 min(frame_s), "tracking frame")
+    prof_t = profile_call(torch, lambda: track_frame(gm, T_init, gt_color, gt_depth, matches,
+                                                     cam, tcfg, rcfg_t, rebin_iters=REBINS),
+                          min(frame_s), "tracking frame")
+    if prof_t is not None:
+        print(f"# tracking frame: {prof_t['launches']} device launches (torch.profiler), "
+              f"{prof_t['launches'] / ITERS:.2f} per iteration (the rebins' included)", flush=True)
 
     # ---- 7. K4 / K5 against their plain versions ----
     flat = phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg)
@@ -1418,6 +1480,9 @@ def main() -> int:
         blend_forward_plain(packed_r, bins_r.counts, cam, rcfg, pairs=pairs_k3)
         blend_flat_forward_plain(packed_m, cb_m, cam, rcfg, pairs=pairs_k4)
         live_m = float((cb_m.indices >= 0).sum())
+        per_tile = torch.bincount((cb_m.tile_start[1:] - cb_m.tile_start[:-1]).long()).tolist()
+        print(f"# K4 / K5 mapping layout: tiles by chunk count "
+              f"{json.dumps(dict(enumerate(per_tile)))} (one block per tile)", flush=True)
         n_chunks_m = float(cb_m.n_chunks)
         nz_k2b = float((d_screen[:, list(POSE_SCREEN_ROWS)] != 0).any(1).sum())
 
@@ -1476,6 +1541,10 @@ def main() -> int:
         print(f"# {name} backward (lane, slot) pairs: {pr['warp_visits']} visited (the slots "
               f"each warp applied) against {pr['to_last']} to each pixel's last applied slot "
               f"({pr['warp_visits'] / max(pr['to_last'], 1):.4f})", flush=True)
+    print(f"# K4 forward (lane, slot) pairs: {pairs_k4['warp_kept']} kept by the footprint "
+          f"cull against {pairs_k4['evaluated']} evaluated per pixel "
+          f"({pairs_k4['warp_kept'] / max(pairs_k4['evaluated'], 1):.4f}); the visit words' "
+          f"floor {pairs_k4['warp_visits']}", flush=True)
     print(f"# (pixel, instance) pairs: K7 {json.dumps(pairs_k7)}, K8 {json.dumps(pairs_k8)} "
           f"over {live_p:.0f} live rect-tile instances", flush=True)
     print(f"# (pixel, instance) pairs: K1 {json.dumps(pairs_k1)}, K3 {json.dumps(pairs_k3)}, "

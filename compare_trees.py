@@ -8,13 +8,17 @@ measures, at ``chip_smoke.py``'s main-path shapes (the bench scene of
 ``profiling/common.py``: TUM1's camera at 640x480, 250,000 random splats):
 
 - each redesigned kernel's time by CUDA events (``profiling.common.time_ms``):
-  K1 and K7 on the tracking pack 1 cm off, K8 on the paired view (K1 and K8
-  also at each other tracking capacity of ``--caps``), K4 and K5 on the
-  mapping step's layout (``chip_smoke.phase_mapping``; with
-  ``--kernels-only`` the render bins' flat layout, chip_smoke's phase 7),
-  K6 on the render bins, K9's variants (``profile_fused_ablate``);
-- a SHA-256 of each kernel's outputs, so two trees' results can be compared
-  bit for bit across processes;
+  K1 and K7 on the tracking pack 1 cm off, K2f on that pack and K2b on K1's
+  gradients there, K8 on the paired view (K1 and K8 also at each other
+  tracking capacity of ``--caps``), K4 and K5 under both stop rules on the
+  render bins' flat layout (chip_smoke's phase 7) and, unless
+  ``--kernels-only``, on the mapping step's layout
+  (``chip_smoke.phase_mapping``), K6 on the render bins, K9's variants
+  (``profile_fused_ablate``);
+- a SHA-256 of each kernel's outputs (K4's visit words included), so two
+  trees' results can be compared bit for bit across processes;
+- K2b's device launches per call and, unless ``--kernels-only``, a
+  tracking frame's, counted by ``torch.profiler``;
 - unless ``--kernels-only``: tracking ms per iteration (``track_frame``, 200
   iterations with bench.py's rebins, the median of ``--frames`` frames),
   mapping ms per iteration (``map_window``, 100 iterations, the median of
@@ -52,6 +56,20 @@ def _digest(*tensors) -> str:
     for x in tensors:
         h.update(x.detach().contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def _device_launches(torch, fn) -> int:
+    """Device activities (kernels, copies, fills) of one call of ``fn``,
+    counted by ``torch.profiler`` here: a parent tree's
+    ``profiling.common.profile_call`` may not count them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
 
 
 def measure(kernels_only: bool, frames: int, caps: list[int]) -> dict:
@@ -104,13 +122,17 @@ def measure(kernels_only: bool, frames: int, caps: list[int]) -> dict:
         tracking_loss_grad_paired,
         tracking_pair_order,
     )
-    from gsorb_slam_tpu_torch.raster.preprocess_kernel import preprocess_instances_kernel
+    from gsorb_slam_tpu_torch.raster.preprocess_kernel import (
+        preprocess_bwd,
+        preprocess_fwd,
+        preprocess_instances_kernel,
+    )
     from gsorb_slam_tpu_torch.core.transforms import pose_to_matrix
     from gsorb_slam_tpu_torch.slam.mapping import map_window, window_chunk_budget
     from gsorb_slam_tpu_torch.slam.tracking import FeatureMatches, track_frame, tracking_raster_config
     from gsorb_slam_tpu_torch.splat.gaussians import prefix_view
 
-    res: dict = {"device": device_info(dev)["name"], "ms": {}, "digest": {}}
+    res: dict = {"device": device_info(dev)["name"], "ms": {}, "digest": {}, "count": {}}
     checks = cs.Checks()
 
     # The scene of chip_smoke.main (bench.py:107-127).
@@ -147,6 +169,12 @@ def measure(kernels_only: bool, frames: int, caps: list[int]) -> dict:
         counts = bins_t.counts
         timed("K1", lambda: tracking_loss_grad(screen, counts, gt4, cam, rcfg_t, *w),
               digest=lambda r: r)
+        d_screen = tracking_loss_grad(screen, counts, gt4, cam, rcfg_t, *w)[2]
+        timed("K2f", lambda: preprocess_fwd(raw, rt1, cam), 50, digest=lambda r: (r,))
+        timed("K2b", lambda: preprocess_bwd(raw, rt1, d_screen, cam), 50, digest=lambda r: (r,))
+        if dev.type == "cuda":
+            res["count"]["K2b device launches per call"] = _device_launches(
+                torch, lambda: preprocess_bwd(raw, rt1, d_screen, cam))
         timed("K7", lambda: tracking_loss_grad(screen, counts, gt4, cam, rcfg_e, *w),
               digest=lambda r: r)
         for cap in [rcfg.track_tile_capacity] + [c for c in caps
@@ -175,29 +203,32 @@ def measure(kernels_only: bool, frames: int, caps: list[int]) -> dict:
         timed("K6", lambda: blend_backward(packed_r, bins_r.counts, ct_r, last_r, g_r, cam, rcfg),
               digest=lambda r: (r,))
 
-    # K4 / K5 at the mapping step's shapes (chip_smoke's phases 8-9), or with
-    # --kernels-only on the render bins' flat layout (its phase 7).
+    # K4 / K5 on the render bins' flat layout (chip_smoke's phase 7) under
+    # both stop rules and, unless --kernels-only, at the mapping step's
+    # shapes (its phases 8-9).
     with torch.no_grad():
-        if kernels_only:
-            ty, tx = tile_grid_shape(cam, rcfg)
-            cb = chunk_layout(bins_r, ty * tx, rcfg.chunk,
-                              window_chunk_budget(bins_r.counts[None], rcfg.chunk))
-            packed_m = pack_instances_flat(prep, cb)
-        else:
+        ty, tx = tile_grid_shape(cam, rcfg)
+        cb_r = chunk_layout(bins_r, ty * tx, rcfg.chunk,
+                            window_chunk_budget(bins_r.counts[None], rcfg.chunk))
+        layouts = [("", cb_r, pack_instances_flat(prep, cb_r))]
+        if not kernels_only:
             mp = cs.phase_mapping(torch, checks, gm, cam, rcfg, dev)
-            cb = mp["layout"].cbins
             gm_m = mp["gm"]
-            packed_m = pack_instances_flat(preprocess(
+            cb_m = mp["layout"].cbins
+            layouts.append((" mapping", cb_m, pack_instances_flat(preprocess(
                 gm_m.means, gm_m.rgb, gm_m.quats, gm_m.logit_opacities, gm_m.log_scales,
-                gm_m.active, mp["pose"], cam), cb)
-        fwd = blend_flat_forward(packed_m, cb, cam, rcfg)
-        g_m = torch.randn(fwd[0].shape, generator=torch.Generator().manual_seed(3)).to(dev)
-        timed("K4", lambda: blend_flat_forward(packed_m, cb, cam, rcfg),
-              digest=lambda r: r[:3])
-        timed("K5", lambda: blend_flat_backward(packed_m, cb, *fwd, g_m, cam, rcfg),
-              digest=lambda r: (r,))
-        res["ms"]["K5 output zero fill"] = time_ms(
-            lambda: torch.zeros((cb.indices.shape[0], 16, rcfg.chunk), device=dev), dev, 20)
+                gm_m.active, mp["pose"], cam), cb_m)))
+        for at, cb, packed_m in layouts:
+            for exact in (False, True):
+                cfg = dataclasses.replace(rcfg, exact_stop=exact)
+                name = at + (" exact" if exact else "")
+                fwd = blend_flat_forward(packed_m, cb, cam, cfg)
+                g_m = torch.randn(fwd[0].shape,
+                                  generator=torch.Generator().manual_seed(3)).to(dev)
+                timed("K4" + name, lambda: blend_flat_forward(packed_m, cb, cam, cfg),
+                      digest=lambda r: r)
+                timed("K5" + name, lambda: blend_flat_backward(packed_m, cb, *fwd, g_m, cam, cfg),
+                      digest=lambda r: (r,))
     abl = profile_fused_ablate.main(["--reps", "20"] if dev.type == "cuda" else
                                     ["--cpu", "--reps", "1", "--width", str(cam.width),
                                      "--height", str(cam.height), "--splats", str(cs.N_SPLATS),
@@ -221,6 +252,11 @@ def measure(kernels_only: bool, frames: int, caps: list[int]) -> dict:
             frame_s.append(time.perf_counter() - t0)
         res["digest"]["tracked pose"] = _digest(r.T_cw)
         res["ms"]["tracking ms / iteration"] = float(np.median(frame_s[1:])) / cs.ITERS * 1e3
+        if dev.type == "cuda":
+            with torch.no_grad():
+                res["count"]["tracking frame device launches"] = _device_launches(
+                    torch, lambda: track_frame(gm, T_init, gt_color, gt_depth, matches, cam, tcfg,
+                                               rcfg_t, rebin_iters=cs.REBINS))
         mcfg = MappingConfig()
         n_iters = cs.MAP_ITERS or mcfg.num_iters
         frames_w = mp["frames"]
@@ -301,6 +337,8 @@ def main(argv: list[str] | None = None) -> dict:
         for k, v in r["ms"].items():
             print(f"# {label}: {k} {v:.4f} ms" + (f" [{r['digest'][k]}]" if k in r["digest"]
                                                    else ""), flush=True)
+        for k, v in r["count"].items():
+            print(f"# {label}: {k} {v}", flush=True)
         if r.get("system"):
             print(f"# {label}: System {json.dumps(r['system'])}", flush=True)
         print(f"# {label}: {r['seconds']:.1f} s, checks failed: {r['checks_failed']}", flush=True)

@@ -80,8 +80,8 @@ _SIGNATURES = {
     "gsorb_paired_track": _TRACK_ARGS,
     **{f"gsorb_fused_track_ablate_{v}": _TRACK_ARGS for v in ABLATE_VARIANTS},
     "gsorb_preprocess_fwd": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
-    "gsorb_preprocess_bwd": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
-    "gsorb_preprocess_blocks": [ctypes.c_longlong],
+    "gsorb_preprocess_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
+    "gsorb_preprocess_bwd_max_blocks": [],
 }
 
 

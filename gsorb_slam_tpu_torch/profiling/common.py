@@ -225,7 +225,8 @@ def profile_call(fn: Callable[[], object], dev: torch.device, best_ms: float | N
     """One call of ``fn`` under ``torch.profiler``: ``wall_ms`` (profiled),
     ``kernel_ms`` (device time), ``busy`` (kernel time over the profiled
     wall time), ``busy_of_best`` (over ``best_ms``, an unprofiled call: the
-    profiler slows the host, not the kernels) and the ``top`` kernels by
+    profiler slows the host, not the kernels), ``launches`` (device
+    activities: kernels, copies and fills) and the ``top`` kernels by
     device time. ``None`` on the CPU (no device to measure) and where the
     profiler recorded no device time."""
     if dev.type != "cuda":
@@ -248,6 +249,7 @@ def profile_call(fn: Callable[[], object], dev: torch.device, best_ms: float | N
         "kernel_ms": kernel_ms,
         "busy": kernel_ms / wall,
         "busy_of_best": kernel_ms / best_ms if best_ms else None,
+        "launches": sum(e.count for e in events),
         "top": [{"ms": e.self_device_time_total / 1e3, "count": e.count, "name": e.key[:90]}
                 for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]],
     }
@@ -260,7 +262,8 @@ def profile_lines(prof: dict | None, what: str) -> list[str]:
     best = (f", {prof['busy_of_best']:.4f} of the best unprofiled call"
             if prof["busy_of_best"] is not None else "")
     lines = [f"# profiled {what}: {prof['wall_ms']:.3f} ms wall, {prof['kernel_ms']:.3f} ms of "
-             f"kernels; device busy {prof['busy']:.4f} of the profiled call{best}"]
+             f"kernels in {prof['launches']} launches; device busy {prof['busy']:.4f} of the "
+             f"profiled call{best}"]
     lines += [f"#   {e['ms']:9.3f} ms  {e['count']:5d} x  {e['name']}" for e in prof["top"]]
     return lines
 

@@ -3,10 +3,13 @@ counted by the plain blend (``blend_kernels.blend_tiles``), a batch of tiles
 at a time so that the full view fits in little memory on the CPU.
 
 For each pack it prints the pair counts the kernels' bounds charge
-(``evaluated``, ``applied``, ``to_last``) and ``warp_visits``: the (lane,
+(``evaluated``, ``applied``, ``to_last``), ``warp_visits``: the (lane,
 slot) pairs a backward evaluates when each warp (32 consecutive pixels)
 visits only the slots one of its lanes applied, against ``to_last``, the
-pairs a walk to each pixel's last applied slot evaluates. The packs are
+pairs a walk to each pixel's last applied slot evaluates, and
+``warp_kept``: the (lane, slot) pairs a forward evaluates when each warp
+walks only the slots whose footprint box meets its pixels (K4's cull,
+``blend_kernels.footprint_keep``), against ``evaluated``. The packs are
 ``chip_smoke.py``'s: the tracking view at a pose 1 cm off (K1, K7), the
 paired 16x8 view (K8, per tile half) and the render bins (K3 / K6; the
 flat mapping blend K4 / K5 walks the same tiles in the same order). The
@@ -34,7 +37,7 @@ from gsorb_slam_tpu_torch.raster.paired import pair_bins, tracking_pair_order
 from gsorb_slam_tpu_torch.raster.preprocess_kernel import preprocess_instances_kernel
 from gsorb_slam_tpu_torch.slam.tracking import tracking_raster_config
 
-KEYS = ("evaluated", "applied", "to_last", "warp_visits")
+KEYS = ("evaluated", "applied", "to_last", "warp_visits", "warp_kept")
 
 
 def pair_counts(packed, counts, tile_ids, cam, cfg, crossing_median, batch) -> dict:
@@ -89,7 +92,8 @@ def main(argv: list[str] | None = None) -> dict:
             res[name] = pair_counts(pk, cnt, tid, cam, cfg, crossing, args.tile_batch)
             r = res[name]
             print(f"# {name}: {json.dumps(r)}; warp_visits / to_last "
-                  f"{r['warp_visits'] / max(r['to_last'], 1):.4f}", flush=True)
+                  f"{r['warp_visits'] / max(r['to_last'], 1):.4f}, warp_kept / evaluated "
+                  f"{r['warp_kept'] / max(r['evaluated'], 1):.4f}", flush=True)
     return res
 
 

@@ -225,7 +225,10 @@ def blend_tiles(
     ``applied`` (the instance is blended), ``to_last`` (the pairs up to
     each pixel's last applied instance) and ``warp_visits`` (the pairs the
     kernels' backward evaluates again: 32 x the distinct applied slots of
-    each group of 32 consecutive pixels, a warp, which walks only those)."""
+    each group of 32 consecutive pixels, a warp, which walks only those)
+    and ``warp_kept`` (the pairs a forward evaluates whose warps walk only
+    the slots :func:`footprint_keep` keeps, up to the slot where the warp's
+    last lane stops: 32 x those (warp, slot) pairs; K4's walk)."""
     if exact and not stop:
         raise ValueError("the exact stop rule has no no-stop variant")
     n_tiles, _, cap = packed.shape
@@ -239,7 +242,7 @@ def blend_tiles(
     done = torch.zeros((n_tiles, px), dtype=torch.bool, device=dev)
     chunk_t = []
     kk = torch.arange(K, device=dev)
-    n_eval = n_apply = n_visit = 0
+    n_eval = n_apply = n_visit = n_kept = 0
     n_last = torch.zeros((n_tiles, px), dtype=torch.long, device=dev)
     visit = []
     for c in range(n_chunks):
@@ -272,6 +275,8 @@ def blend_tiles(
             visited = visited & live[:, None, :] & ~done0[..., None]
             n_eval += int(visited.sum())
             n_apply += int(apply.sum())
+            reach = _per_warp(visited)  # some lane of the warp is still blending
+            n_kept += 32 * int((reach & footprint_keep(pk, pu, pv)).sum())
         if pairs is not None or with_last:
             idx = torch.where(apply, c * K + kk + 1, torch.zeros_like(kk)).amax(dim=-1)
             n_last = torch.maximum(n_last, idx)
@@ -298,7 +303,7 @@ def blend_tiles(
     chunk_t.append(T)
     if pairs is not None:
         pairs.update(evaluated=n_eval, applied=n_apply, to_last=int(n_last.sum()),
-                     warp_visits=n_visit)
+                     warp_visits=n_visit, warp_kept=n_kept)
     zero = torch.zeros_like(T)
     res = (torch.cat([acc, torch.stack([Med, T, zero], dim=1)], dim=1), torch.stack(chunk_t, dim=1))
     if with_last:
@@ -324,6 +329,60 @@ def _visit_words(warp_apply: torch.Tensor) -> torch.Tensor:
     bits = a.reshape(n_tiles, n_warps, (K + pad) // 32, 32).long()
     w = (bits << torch.arange(32, device=a.device)).sum(-1)
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+# K4's footprint cull (csrc/blend_flat.cu, slot_extents): a slot whose
+# opacity is below FOOT_OP_MIN cannot pass the 1/255 gate anywhere (exp <= 1;
+# the factor covers expf's and the product's rounding); otherwise its
+# {alpha >= 1/255} ellipse d^T C d <= tau, tau = 2 ln(255 op), has the
+# axis-aligned half-extents sqrt(tau cc / det), sqrt(tau ca / det). The f32
+# falloff d^T C d is off by at most ~4e-7 of ca d0^2 + cc d1^2 + 2 |cb d0
+# d1|, which is at most 2 (ca + cc)^2 / det times d^T C d: so tau is widened
+# by that ratio times FOOT_Q_REL (twice the rounding), by FOOT_REL for logf
+# and the gate, and the extents by FOOT_REL and FOOT_PAD_PX for sqrtf and
+# the pixel offsets. A conic that is not positive definite, or whose
+# widening exceeds a half, is never culled.
+FOOT_OP_MIN = MIN_ALPHA * (1.0 - 1e-5)
+FOOT_Q_REL = 2e-6
+FOOT_REL = 1e-5
+FOOT_PAD_PX = 1e-3
+
+
+def footprint_extents(
+    ca: torch.Tensor, cb: torch.Tensor, cc: torch.Tensor, op: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's per-slot half-extents ``(ex, ey)`` (float32, as the kernel
+    computes them): -1 for a slot no pixel can apply, inf for one that
+    cannot be bounded."""
+    det = ca * cc - cb * cb
+    tr = ca + cc
+    rho = FOOT_Q_REL * tr * tr / det
+    tau = (torch.clamp(2.0 * torch.log(255.0 * op), min=0.0) * (1.0 + FOOT_REL) + FOOT_REL) / (
+        1.0 - rho)
+    ex = torch.sqrt(tau * cc / det) * (1.0 + FOOT_REL) + FOOT_PAD_PX
+    ey = torch.sqrt(tau * ca / det) * (1.0 + FOOT_REL) + FOOT_PAD_PX
+    bounded = (ca > 0) & (cc > 0) & (det > 0) & (rho < 0.5)
+    never = op < FOOT_OP_MIN
+    inf = torch.full_like(ex, float("inf"))
+    neg = torch.full_like(ex, -1.0)
+    return (torch.where(never, neg, torch.where(bounded, ex, inf)),
+            torch.where(never, neg, torch.where(bounded, ey, inf)))
+
+
+def footprint_keep(packed: torch.Tensor, pu: torch.Tensor, pv: torch.Tensor) -> torch.Tensor:
+    """``[T, px / 32, K]`` bool: the slots of ``packed [T, 16, K]`` whose
+    footprint box meets the rectangle of pixel centres of each warp (32
+    consecutive pixels of ``pu``, ``pv [T, px]``). K4 evaluates only these
+    (lane, slot) pairs; every pair that passes the gate is among them."""
+    n_tiles, px = pu.shape
+    ex, ey = footprint_extents(packed[:, CA], packed[:, CB], packed[:, CC], packed[:, OP])
+    mu, mv = packed[:, MU, None, :], packed[:, MV, None, :]  # [T, 1, K]
+    wu = pu.reshape(n_tiles, px // 32, 32)
+    wv = pv.reshape(n_tiles, px // 32, 32)
+    x0, x1 = wu.amin(-1)[..., None], wu.amax(-1)[..., None]  # [T, W, 1]
+    y0, y1 = wv.amin(-1)[..., None], wv.amax(-1)[..., None]
+    ex, ey = ex[:, None, :], ey[:, None, :]
+    return ~((ex < 0) | (mu + ex < x0) | (mu - ex > x1) | (mv + ey < y0) | (mv - ey > y1))
 
 
 def _check_tile_shape(cfg: RasterConfig) -> None:

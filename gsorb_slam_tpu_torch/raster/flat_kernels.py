@@ -11,7 +11,9 @@ tile. Two kernels live here, each beside its plain version:
   TPU kernel ``_flat_fwd_kernel``. Plain version:
   :func:`blend_flat_forward_plain`, which lays the flat chunks back out per
   tile and runs :func:`~gsorb_slam_tpu_torch.raster.blend_kernels.blend_tiles`,
-  so it is K3's plain version by construction.
+  so it is K3's plain version by construction. The kernel's warps walk only
+  the slots whose footprint box meets their pixels; that cull's plain
+  version is :func:`footprint_keep_plain`.
 - **K5** :func:`blend_flat_backward` (``csrc/blend_flat.cu``), replacing
   ``_flat_bwd_kernel`` + ``_flat_chunk_grad``. Plain version:
   :func:`blend_flat_backward_plain`, ``torch.autograd`` through the plain
@@ -43,6 +45,7 @@ from gsorb_slam_tpu_torch.raster.blend_kernels import (
     attr_cols,
     blend_backward_plain,
     blend_tiles,
+    footprint_keep,
     gate_edges,
     render_output_from_tiles,
     tile_pixels,
@@ -129,8 +132,8 @@ def blend_flat_forward_plain(
     ``visit`` holds K5's visit words (int32; bit b of word j of warp w is
     set iff one of the warp's 32 pixels applied slot 32 j + b of the
     chunk; zero for dead chunks). ``pairs`` as in ``blend_tiles``, over
-    each tile's live instances (the kernel also evaluates the padding slots
-    of a tile's last chunk, which carry opacity 0 and change nothing)."""
+    each tile's live instances (the padding slots of a tile's last chunk
+    carry opacity 0: the kernel's cull skips them)."""
     ty, tx = tile_grid_shape(cam, cfg)
     n_tiles = ty * tx
     K = packed.shape[2]
@@ -202,6 +205,23 @@ def cotangent_without_gate_edges(
     g = g_out.clone()
     g.masked_fill_(edge[:, None, :], 0.0)
     return g, int(edge.sum())
+
+
+def footprint_keep_plain(
+    packed: torch.Tensor, cbins: ChunkBins, cam: Camera, cfg: RasterConfig
+) -> torch.Tensor:
+    """``[MC, px / 32, K]`` bool: the slots of each flat chunk that K4's
+    warps evaluate, the plain version of its footprint cull
+    (``blend_kernels.footprint_keep`` against the pixel rectangle of each
+    warp of the chunk's tile; dead chunks keep nothing). A culled pair
+    cannot pass the blend's gate, so every slot a warp applies (the visit
+    words) is kept."""
+    ty, tx = tile_grid_shape(cam, cfg)
+    n_tiles = ty * tx
+    tile = torch.clamp(cbins.chunk_tile, max=n_tiles - 1)
+    pu, pv = tile_pixels(tile, tx, cfg.tile_w_px, cfg.tile_h_px)
+    keep = footprint_keep(packed, pu, pv)
+    return keep & (cbins.chunk_tile < n_tiles)[:, None, None]
 
 
 # ---------------------------------------------------------------------------

@@ -5,19 +5,26 @@
   ``[T, 16, cap]`` and pose ``rt [12]`` -> screen pack ``[T, 16, cap]``,
   replacing the TPU ``_fwd_kernel``.
 - **K2b** (same source, ``preprocess_bwd``): ``d_screen`` -> the 12 pose
-  cotangents, replacing the TPU ``_bwd_kernel``. Per-block partial sums come
-  out of the kernel; the final fixed-order ``torch.sum`` keeps the result
-  deterministic.
+  cotangents, replacing the TPU ``_bwd_kernel``: one reverse pass per
+  instance and the sum over instances inside the same launch, in a fixed
+  order (deterministic). Its per-block rows and its ticket counter are a
+  workspace allocated once per device (:func:`_bwd_workspace`).
 
 :func:`preprocess_instances_kernel` is a ``torch.autograd.Function`` whose
 forward is K2f and backward K2b on CUDA tensors. On CPU tensors it runs the
 plain version, :func:`gsorb_slam_tpu_torch.raster.instances.screen_rows`,
 and autograd through it. Gradient contract: only the pose cotangent; the
 raw pack gets none (tracking never differentiates it).
+
+:func:`adjoint_edge_pack` makes a raw pack, a pose and a cotangent from a
+seed on which K2b takes every branch of its adjoint (near plane, clips,
+``det <= 0``, dead slots, zero cotangents); the card's checks and the CPU
+tests use it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from gsorb_slam_tpu_torch import _build
@@ -31,6 +38,8 @@ __all__ = [
     "preprocess_fwd",
     "preprocess_bwd",
     "preprocess_bwd_plain",
+    "adjoint_edge_pack",
+    "EDGE_KINDS",
     "rt_from_matrix",
 ]
 
@@ -65,6 +74,20 @@ def preprocess_fwd(
     return out
 
 
+# Per device: K2b's block rows [max blocks, 16] and its ticket counter
+# (int32, 0 between launches; the kernel's last block resets it).
+_BWD_WORK: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _bwd_workspace(dev: torch.device, lib) -> tuple[torch.Tensor, torch.Tensor]:
+    work = _BWD_WORK.get(dev)
+    if work is None:
+        rows = torch.empty((lib.gsorb_preprocess_bwd_max_blocks(), 16), dtype=torch.float32,
+                           device=dev)
+        work = _BWD_WORK[dev] = (rows, torch.zeros(1, dtype=torch.int32, device=dev))
+    return work
+
+
 def preprocess_bwd(
     raw: torch.Tensor,
     rt: torch.Tensor,
@@ -72,23 +95,23 @@ def preprocess_bwd(
     cam: Camera,
     scale_modifier: float = 1.0,
 ) -> torch.Tensor:
-    """K2b: launch the pose-adjoint kernel; returns ``d_rt [12]``."""
+    """K2b: launch the pose-adjoint kernel; returns ``d_rt [12]``. One launch
+    per call, at ``T = 0`` too (zeros)."""
     n_tiles, cap = _check_inputs(raw, rt)
     _build.check_tensor(
         d_screen, "d_screen", torch.float32, (n_tiles, N_SCREEN, cap), raw.device
     )
     lib = _build.library()
-    n_blocks = lib.gsorb_preprocess_blocks(n_tiles * cap)
-    partials = torch.empty((max(n_blocks, 1), 12), dtype=torch.float32, device=raw.device)
-    if n_blocks == 0:
-        partials.zero_()
+    rows, ticket = _bwd_workspace(raw.device, lib)
+    d_rt = torch.empty(12, dtype=torch.float32, device=raw.device)
     _build.count_launch("preprocess_bwd")
     err = lib.gsorb_preprocess_bwd(
-        raw.data_ptr(), rt.data_ptr(), d_screen.data_ptr(), partials.data_ptr(),
-        n_tiles, cap, *_cam_args(cam, scale_modifier), _build.stream_handle(raw.device),
+        raw.data_ptr(), rt.data_ptr(), d_screen.data_ptr(), d_rt.data_ptr(), rows.data_ptr(),
+        ticket.data_ptr(), n_tiles, cap, *_cam_args(cam, scale_modifier),
+        _build.stream_handle(raw.device),
     )
     _build.check(err, "preprocess_bwd")
-    return partials.sum(0)
+    return d_rt
 
 
 def preprocess_bwd_plain(
@@ -104,6 +127,82 @@ def preprocess_bwd_plain(
         out = screen_rows(raw.detach(), rt_, cam, scale_modifier)
         (d_rt,) = torch.autograd.grad(out, rt_, d_screen)
     return d_rt
+
+
+# The kinds of slot in adjoint_edge_pack, by their index in its kind array.
+EDGE_KINDS = ("ordinary", "near_plane", "clipped", "det_le_0", "dead", "zero_cotangent")
+
+
+def _quat_rotations(q: np.ndarray) -> np.ndarray:
+    """Unit quaternions ``[n, 4]`` (w, x, y, z) -> rotation matrices ``[n, 3, 3]``."""
+    w, x, y, z = q.T
+    return np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], 1).reshape(-1, 3, 3)
+
+
+def adjoint_edge_pack(
+    seed: int, n_tiles: int, cap: int, cam: Camera
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """``(raw [T, 16, cap], rt [12], d_screen [T, 16, cap], kind [T, cap])``,
+    made with numpy from ``seed`` (float32; ``kind`` indexes
+    :data:`EDGE_KINDS`), on which the pose adjoint takes every branch.
+    Each slot is one of six kinds, drawn at random: an ordinary instance in
+    the view; one whose depth lies around the 0.2 near plane (on both
+    sides); one whose ``x / z`` or ``y / z`` (or both) lies past its clip
+    ``1.3 tan(fov / 2)`` on either side; one whose world covariance has
+    variances +v and -v along two axes of the image plane, so that the
+    screen conic's ``det`` is clearly negative (a random indefinite
+    covariance would also give near-singular conics with ``det`` just above
+    0, whose pose gradients float32 cannot resolve: there the plain version
+    itself is 1e-3 from float64); a dead slot (live 0); and a slot whose
+    cotangent is zero. Elsewhere each of the six pose cotangent rows is zero
+    with probability 0.2, and every other row carries a cotangent too (the
+    adjoint must ignore it). The pose is a small rotation and a translation
+    of a few cm."""
+    rng = np.random.default_rng(seed)
+    n = n_tiles * cap
+    kind = rng.integers(0, 6, n)
+    lim = np.array([1.3 * cam.tan_half_fov_x, 1.3 * cam.tan_half_fov_y])
+    z = np.where(kind == 1, rng.uniform(0.1, 0.3, n), rng.uniform(0.8, 4.0, n))
+    ratio = rng.uniform(-0.9, 0.9, (n, 2)) * lim
+    past = rng.uniform(1.2, 3.0, (n, 2)) * lim * rng.choice([-1.0, 1.0], (n, 2))
+    axes = rng.integers(1, 4, n)  # clip x (1), y (2) or both (3)
+    for a in range(2):
+        clip = (kind == 2) & ((axes >> a) & 1 == 1)
+        ratio[:, a] = np.where(clip, past[:, a], ratio[:, a])
+    mean = np.stack([ratio[:, 0] * z, ratio[:, 1] * z, z], 1)
+    q = rng.normal(size=(n, 4))
+    rot = _quat_rotations(q / np.linalg.norm(q, axis=1, keepdims=True))
+    var = rng.uniform(0.01, 0.1, (n, 3)) ** 2
+    v = rng.uniform(0.05, 0.2, n) ** 2
+    ang = rng.uniform(0, np.pi, n)  # a turn about the optical axis
+    co, si, zero, one = np.cos(ang), np.sin(ang), np.zeros(n), np.ones(n)
+    rot_z = np.stack([co, -si, zero, si, co, zero, zero, zero, one], 1).reshape(n, 3, 3)
+    indefinite = kind == 3
+    rot[indefinite] = rot_z[indefinite]
+    var[indefinite] = np.stack([v, -v, var[:, 2]], 1)[indefinite]
+    cov = np.einsum("nij,nj,nkj->nik", rot, var, rot)
+    raw = np.zeros((n, 16), np.float64)
+    raw[:, 0:3] = mean
+    raw[:, 3:6] = rng.uniform(0, 1, (n, 3))
+    raw[:, 6:12] = cov[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
+    raw[:, 12] = rng.normal(size=n)
+    raw[:, 13] = np.where(kind == 4, 0.0, 1.0)
+    d = rng.normal(size=(n, 16))
+    pose_rows = [0, 1, 2, 3, 4, 9]
+    d[:, pose_rows] *= rng.uniform(size=(n, 6)) >= 0.2
+    d[kind == 5] = 0.0
+    h = np.array([[1.0, 0.02, -0.03, 0.01]])
+    R = _quat_rotations(h / np.linalg.norm(h))[0]
+    rt = np.concatenate([R.reshape(-1), [0.03, -0.02, 0.05]]).astype(np.float32)
+
+    def tiles(a):
+        return np.ascontiguousarray(a.reshape(n_tiles, cap, 16).transpose(0, 2, 1), np.float32)
+
+    return tiles(raw), rt, tiles(d), kind.reshape(n_tiles, cap)
 
 
 class _PreprocessInstances(torch.autograd.Function):

@@ -46,6 +46,7 @@ from gsorb_slam_tpu_torch.raster.flat_kernels import (
     blend_flat_forward,
     blend_flat_forward_plain,
     cotangent_without_gate_edges,
+    footprint_keep_plain,
     pack_instances_flat,
     render_flat,
 )
@@ -59,7 +60,9 @@ from gsorb_slam_tpu_torch.raster.paired import (
     tracking_pair_order,
     unpack_gt_pairs,
 )
+from gsorb_slam_tpu_torch.slam.mapping import window_chunk_budget
 from gsorb_slam_tpu_torch.raster.preprocess_kernel import (
+    adjoint_edge_pack,
     preprocess_bwd,
     preprocess_bwd_plain,
     preprocess_fwd,
@@ -136,6 +139,51 @@ def test_k2_and_k1_match_plain(dev):
     d_rt_k = preprocess_bwd(raw, rt, g_k, CAM)
     d_rt_p = preprocess_bwd_plain(raw, rt, g_k, CAM)
     assert float((d_rt_k - d_rt_p).abs().max() / d_rt_p.abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("n_tiles,cap", [(3, 300), (1, 256), (1, 300), (0, 300), (2, 150000)])
+def test_k2b_edge_pack_matches_plain(dev, n_tiles, cap):
+    """K2b on the adjoint's edge-case pack (near plane, clips, det <= 0, dead
+    slots, zero cotangents) against its plain version, 1e-3 relative: at a
+    capacity that is not a multiple of 256, at one tile of one block, at
+    T = 0 (zeros) and past the grid's 1024 blocks (the grid-stride loop).
+    One launch per call, and two launches give the same bits."""
+    cam = Camera(fx=60.0, fy=60.0, cx=32.0, cy=24.0, width=64, height=48)
+    raw, rt, d, _ = (torch.as_tensor(a).to(dev) for a in adjoint_edge_pack(0, n_tiles, cap, cam))
+    n0 = _build.launches["preprocess_bwd"]
+    d_k = preprocess_bwd(raw, rt, d, cam, 1.1)
+    assert _build.launches["preprocess_bwd"] == n0 + 1
+    d_p = preprocess_bwd_plain(raw, rt, d, cam, 1.1)
+    if n_tiles == 0:
+        assert not d_k.any() and not d_p.any()
+    else:
+        assert float((d_k - d_p).abs().max() / d_p.abs().max()) < 1e-3
+    assert torch.equal(preprocess_bwd(raw, rt, d, cam, 1.1), d_k)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_k4_footprint_cull_keeps_visits(dev, exact):
+    """K4 with its footprint cull on a mapping pack: rows within 2e-3 of
+    the plain version's, the visit words equal to its words exactly, and
+    every visited slot kept by the cull's plain version."""
+    params = _scene(dev)
+    cfg = dataclasses.replace(CFG, exact_stop=exact)
+    prep = preprocess(*params, torch.eye(4, device=dev), CAM)
+    bins = bin_gaussians(prep, CAM, cfg)
+    ty, tx = tile_grid_shape(CAM, cfg)
+    cbins = chunk_layout(bins, ty * tx, cfg.chunk, window_chunk_budget(bins.counts[None],
+                                                                      cfg.chunk))
+    packed = pack_instances_flat(prep, cbins)
+    out, chunk_t, last, visit = blend_flat_forward(packed, cbins, CAM, cfg)
+    out_p, chunk_t_p, last_p, visit_p = blend_flat_forward_plain(packed, cbins, CAM, cfg)
+    torch.testing.assert_close(out, out_p, atol=5e-3, rtol=0)
+    torch.testing.assert_close(chunk_t, chunk_t_p, atol=2e-3, rtol=0)
+    assert torch.equal(visit, visit_p) and bool(visit.any())
+    keep = footprint_keep_plain(packed, cbins, CAM, cfg)
+    bits = ((visit.long() & 0xFFFFFFFF)[..., None] >> torch.arange(32, device=dev)) & 1
+    applied = bits.reshape(*visit.shape[:2], -1)[..., :cfg.chunk].bool()
+    assert not bool((applied & ~keep).any())
+    assert torch.equal(blend_flat_forward(packed, cbins, CAM, cfg)[3], visit)
 
 
 def test_k5_exact_stop_with_background(dev):

@@ -43,6 +43,7 @@ from gsorb_slam_tpu_torch.raster.blend_kernels import (
     blend_and_untile,
     blend_forward,
     blend_forward_plain,
+    footprint_keep,
     gt_without_loss_edges,
     tile_gt_images,
     tracking_blend,
@@ -168,13 +169,15 @@ def test_k3_plain_matches_pallas(rng, exact):
     assert torch.equal(w_out, out) and torch.equal(w_ct, chunk_t)
 
 
-def _pair_counts_per_pixel(packed, counts, pu, pv, exact):
+def _pair_counts_per_pixel(packed, counts, pu, pv, exact, keep=None):
     """The kernels' per-pixel loop, instance by instance, counting the
     evaluated and applied (pixel, instance) pairs, the pairs up to each
     pixel's last applied instance and the (lane, slot) pairs the backward
     walks: 32 for every slot some pixel of a warp (32 consecutive pixels)
-    applied."""
-    n_eval = n_apply = n_last = n_visit = 0
+    applied. With ``keep [T, px / 32, cap]`` (K4's footprint cull) also the
+    (lane, slot) pairs a culled forward walks: 32 for every kept slot
+    reached while some pixel of the warp still blends."""
+    n_eval = n_apply = n_last = n_visit = n_kept = 0
     for t in range(packed.shape[0]):
         T = np.ones(pu.shape[1])
         live = np.ones(pu.shape[1], bool)
@@ -185,6 +188,8 @@ def _pair_counts_per_pixel(packed, counts, pu, pv, exact):
             power = -0.5 * (ca * d0 * d0 + cc * d1 * d1) - cb * d0 * d1
             alpha = np.minimum(0.99, op * np.exp(power))
             n_eval += int(live.sum())
+            if keep is not None:
+                n_kept += 32 * int((live.reshape(-1, 32).any(axis=1) & keep[t, :, k]).sum())
             hit = live & (power <= 0) & (alpha >= 1.0 / 255.0)
             Tn = T * (1.0 - alpha)
             if exact:
@@ -197,7 +202,10 @@ def _pair_counts_per_pixel(packed, counts, pu, pv, exact):
             if not exact:
                 live &= T >= 1e-4
         n_last += int(last.sum())
-    return dict(evaluated=n_eval, applied=n_apply, to_last=n_last, warp_visits=n_visit)
+    res = dict(evaluated=n_eval, applied=n_apply, to_last=n_last, warp_visits=n_visit)
+    if keep is not None:
+        res["warp_kept"] = n_kept
+    return res
 
 
 @pytest.mark.parametrize("exact", [True, False])
@@ -216,8 +224,10 @@ def test_blend_pair_counts_match_per_pixel_loop(rng, exact):
     pu, pv = (np.tile(np.arange(256) % 16, (12, 1)), np.tile(np.arange(256) // 16, (12, 1)))
     pu = pu + (np.arange(12) % 4)[:, None] * 16
     pv = pv + (np.arange(12) // 4)[:, None] * 16
-    ref = _pair_counts_per_pixel(packed, np.asarray(bins.counts), pu, pv, exact)
+    keep = footprint_keep(_t(packed).float(), _t(pu).float(), _t(pv).float()).numpy()
+    ref = _pair_counts_per_pixel(packed, np.asarray(bins.counts), pu, pv, exact, keep)
     assert pairs == ref
+    assert ref["warp_visits"] <= ref["warp_kept"] < 32 * ref["evaluated"]
     assert ref["applied"] < ref["evaluated"] and ref["to_last"] <= ref["evaluated"]
 
 
