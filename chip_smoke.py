@@ -14,7 +14,10 @@ early_stop_delta=0)`` with rebins at (8, 40, 120), and ``MappingConfig()``
 
 Phases (any failed check makes the exit code non-zero):
 1. the card's name and power limit; the kernel build;
-2. K3 (forward blend) against its plain version at render capacity 2048;
+2. K3 (forward blend) against its plain version at render capacity 2048
+   under both stop rules: rows, chunk_t, the last applied slots, and its
+   visit words (K6's residual) equal to the plain version's, every visited
+   slot kept by the plain version of its footprint cull;
 3. K2f / K2b (instance projection and its pose adjoint) against their plain
    versions on the tracking pack at a pose 1 cm off; K2b (after phase 4,
    on K1's gradients) also in one launch (the wrapper's count and
@@ -74,9 +77,10 @@ Phases (any failed check makes the exit code non-zero):
 13. the System with ``exact_stop=True`` and with ``paired=True`` over the
     first 5 frames: ATE < 2 cm, K7 (K8) = the tracking iterations, K1 = 0;
 14. K6 (the per-tile blend backward) against its plain version on phase 2's
-    render bins under both stop rules: a seeded random cotangent on rows
-    0-4 and the final T with the gate-edge pixels left out, two launches
-    bitwise equal, and the render's parameter gradients through the pack and
+    render bins under both stop rules, with K3's residuals (visit words
+    included): a seeded random cotangent on rows 0-4 and the final T with
+    the gate-edge pixels left out, written over a NaN-filled block, two
+    launches bitwise equal, and the render's parameter gradients through the pack and
     ``preprocess`` (background 0.3) against the plain chain;
 15. the window-sharded mapping on a one-rank NCCL process group (from a
     ``FileStore`` in a temporary directory: no network): phase 8's map after
@@ -226,6 +230,14 @@ def axis_angle_pose(torch, axis, deg: float, trans, dev):
     h = math.radians(deg) / 2.0
     q = torch.tensor([math.cos(h), *(math.sin(h) * a)], dtype=torch.float32, device=dev)
     return pose_to_matrix(q, torch.tensor(trans, dtype=torch.float32, device=dev))
+
+
+def applied_slots(torch, visit, K: int):
+    """Visit words ``[..., ceil(K / 32)]`` (int32) -> ``[..., K]`` bool: the
+    slots some lane of the warp applied."""
+    bits = ((visit.long() & 0xFFFFFFFF)[..., None]
+            >> torch.arange(32, device=visit.device)) & 1
+    return bits.reshape(*visit.shape[:-1], -1)[..., :K].bool()
 
 
 def check_tracking_kernel(torch, checks, label, kernel, plain, raw, q, t, cam, gt, gt_edges,
@@ -402,9 +414,7 @@ def phase_flat_kernels(torch, checks, gm, prep, bins_r, cam, rcfg) -> dict:
             checks.record(f"K4 exact={int(exact)} visit words differing", n_words, 0)
             # K4's footprint cull keeps every slot a warp applied.
             keep = footprint_keep_plain(packed, cb, cam, cfg)
-            bits = ((visit_k.long() & 0xFFFFFFFF)[..., None]
-                    >> torch.arange(32, device=visit_k.device)) & 1
-            applied = bits.reshape(*visit_k.shape[:2], -1)[..., :rcfg.chunk].bool()
+            applied = applied_slots(torch, visit_k, rcfg.chunk)
             n_lost = int((applied & ~keep).sum())
             print(f"# K4 exact={int(exact)} footprint cull: {int(keep.sum())} (warp, slot) pairs "
                   f"kept of {keep.numel()}, {int(applied.sum())} applied", flush=True)
@@ -738,8 +748,9 @@ def phase_system(torch, checks, dev) -> dict:
 
 def phase_blend_backward(torch, checks, gm, packed, bins_r, cam, rcfg) -> dict:
     """Phase 14: K6 against its plain version on phase 2's render bins at the
-    identity pose, under both stop rules, with a seeded random cotangent on
-    rows 0-4 and the final T row and the gate-edge pixels left out; two
+    identity pose, under both stop rules, with K3's residuals (its visit
+    words included), a seeded random cotangent on rows 0-4 and the final T
+    row and the gate-edge pixels left out, over a NaN-filled block; two
     launches bitwise equal; the parameter gradients of the render through
     the pack and ``preprocess`` (background 0.3) against the plain chain."""
     from gsorb_slam_tpu_torch.raster.blend_kernels import (
@@ -758,14 +769,18 @@ def phase_blend_backward(torch, checks, gm, packed, bins_r, cam, rcfg) -> dict:
     for exact in (False, True):
         cfg = dataclasses.replace(rcfg, exact_stop=exact)
         with torch.no_grad():
-            out, chunk_t, last = blend_forward(packed, counts, cam, cfg)
+            fwd = blend_forward(packed, counts, cam, cfg)
+        out = fwd[0]
         g = torch.randn(out.shape, generator=torch.Generator().manual_seed(11)).to(out.device)
         g[:, 5] = 0.0
         g[:, 7] = 0.0
         g, n_edge = tile_cotangent_without_gate_edges(packed, g, cam, cfg)
         print(f"# K6 exact={int(exact)} check: {n_edge} of {g.shape[0] * g.shape[2]} pixels left "
               f"out (an alpha within rounding of the 1/255 gate or the 0.99 clamp)", flush=True)
-        d_k = blend_backward(packed, counts, chunk_t, last, g, cam, cfg)
+        # The caching allocator hands K6 a block full of NaN: K6 writes every
+        # element itself.
+        torch.empty(packed.shape, device=packed.device).fill_(float("nan"))
+        d_k = blend_backward(packed, counts, *fwd[1:], g, cam, cfg)
         d_p = blend_backward_plain(packed, counts, g, cam, cfg, tile_batch=150)
         torch.cuda.synchronize()
         ratio = (d_k - d_p).abs() / (8e-4 + 2e-3 * d_p.abs())
@@ -775,11 +790,11 @@ def phase_blend_backward(torch, checks, gm, packed, bins_r, cam, rcfg) -> dict:
             print(f"#   worst: tile {t_i} row {r_i} slot {k_i} kernel {float(d_k[t_i, r_i, k_i]):.6e}"
                   f" plain {float(d_p[t_i, r_i, k_i]):.6e}; {int((ratio > 1).sum())} elements out",
                   flush=True)
-        again = blend_backward(packed, counts, chunk_t, last, g, cam, cfg)
+        again = blend_backward(packed, counts, *fwd[1:], g, cam, cfg)
         checks.record(f"K6 exact={int(exact)} two launches bitwise equal", 0.0, 0.0,
                       ok=bool(torch.equal(again, d_k)))
         if not exact:
-            res.update(k6_err=float((d_k - d_p).abs().max()), resid=(chunk_t, last), g=g)
+            res.update(k6_err=float((d_k - d_p).abs().max()), resid=fwd[1:], g=g)
         del d_k, d_p, again, ratio
 
     # Parameter gradients: the render's colour, depth, alpha and final T
@@ -1117,14 +1132,17 @@ def main() -> int:
         render,
         render_binned,
     )
+    from gsorb_slam_tpu_torch.raster.binning import tile_grid_shape
     from gsorb_slam_tpu_torch.raster.blend_kernels import (
         blend_backward,
         blend_backward_plain,
         blend_forward,
         blend_forward_plain,
+        footprint_keep,
         gt_without_loss_edges,
         pack_instances,
         tile_gt_images,
+        tile_pixels,
         tracking_blend,
         tracking_loss_grad,
         tracking_loss_grad_plain,
@@ -1166,6 +1184,7 @@ def main() -> int:
         PROJ_ADJ_OPS_PER_INSTANCE,
         PROJ_OPS_PER_INSTANCE,
         TRACK_BWD_APPLY_OPS_PER_PAIR,
+        blend_ops,
         bound_ms,
     )
     from gsorb_slam_tpu_torch.splat.gaussians import add_points, empty_map
@@ -1213,11 +1232,13 @@ def main() -> int:
           f"{int(bins_r.counts.max())}, dropped {int(bins_r.n_dropped)}", flush=True)
 
     # ---- 2. K3 against its plain version ----
+    ty_r, tx_r = tile_grid_shape(cam, rcfg)
+    pu_r, pv_r = tile_pixels(torch.arange(ty_r * tx_r, device=dev), tx_r, rcfg.tile, rcfg.tile)
     with torch.no_grad():
         for exact in (False, True):
             cfg = dataclasses.replace(rcfg, exact_stop=exact)
-            out_k, ct_k, _ = blend_forward(packed_r, bins_r.counts, cam, cfg)
-            out_p, ct_p, _ = blend_forward_plain(packed_r, bins_r.counts, cam, cfg)
+            out_k, ct_k, last_k, visit_k = blend_forward(packed_r, bins_r.counts, cam, cfg)
+            out_p, ct_p, last_p, visit_p = blend_forward_plain(packed_r, bins_r.counts, cam, cfg)
             torch.cuda.synchronize()
             worst = 0.0
             for name, rows, tol in (("color", slice(0, 3), 2e-3), ("depth", slice(3, 4), 5e-3),
@@ -1228,6 +1249,21 @@ def main() -> int:
                 worst = max(worst, err)
             err = float((ct_k - ct_p).abs().max())
             checks.record(f"K3 exact={int(exact)} chunk_t max-abs vs plain", err, 2e-3)
+            # The last applied slot moves only where a pixel's T sits at the
+            # 1e-4 stop within rounding (as K4's, phase 7).
+            checks.record(f"K3 exact={int(exact)} last-applied slots differing (share)",
+                          int((last_k != last_p).sum()) / last_k.numel(), 1e-4)
+            # K6's visit words, exactly the plain version's; K3's footprint
+            # cull keeps every slot a warp applied.
+            n_words = int((visit_k != visit_p).sum())
+            print(f"# K3 exact={int(exact)} visit words: {n_words} of {visit_k.numel()} differ "
+                  f"from the plain version's; {int(visit_k.ne(0).sum())} non-zero", flush=True)
+            checks.record(f"K3 exact={int(exact)} visit words differing", n_words, 0)
+            keep = footprint_keep(packed_r, pu_r, pv_r)  # [T, W, cap]
+            applied = applied_slots(torch, visit_k, rcfg.chunk).transpose(1, 2)
+            checks.record(f"K3 exact={int(exact)} applied slots the cull drops",
+                          int((applied.reshape(keep.shape) & ~keep).sum()), 0)
+            del keep, applied
             if not exact:
                 k3_err = max(worst, err)
 
@@ -1453,9 +1489,6 @@ def main() -> int:
                                                       k6["g"], cam, rcfg), 20)
         k6_plain_ms = time_ms(torch, lambda: blend_backward_plain(
             packed_r, bins_r.counts, k6["g"], cam, rcfg, tile_batch=150), 1)
-        k6_fill_ms = time_ms(torch, lambda: torch.zeros_like(packed_r), 20)
-        print(f"# K6's wrapper zero-fills its [T, 16, cap] gradient block before the launch "
-              f"(inside K6's time): {k6_fill_ms:.4f} ms alone", flush=True)
         # K4 / K5 at the mapping step's shapes: the identity window frame's
         # layout and the map mapping starts from.
         cb_m = mp["layout"].cbins
@@ -1496,51 +1529,85 @@ def main() -> int:
     # instances and the gt tiles, writes the whole gradient block; K2f maps
     # every slot (14 raw rows in, 16 screen rows out); K2b reads the 6 pose
     # cotangent rows of every slot and the 10 pose-relevant raw rows of the
-    # slots whose cotangent is not zero; K3 reads the live instances' 10
-    # rows, writes out + chunk_t.
-    b_k1, by_k1 = bound_ms(
-        live_t * 10 * 4 + n_tiles * 4 * px * 4 + slots_t * 16 * 4,
-        (pairs_k1["evaluated"] + pairs_k1["to_last"]) * EVAL_OPS_PER_PAIR
-        + pairs_k1["applied"] * (BLEND_APPLY_OPS_PER_PAIR + TRACK_BWD_APPLY_OPS_PER_PAIR))
-    b_k7, by_k7 = bound_ms(
-        live_t * 10 * 4 + n_tiles * 4 * px * 4 + slots_t * 16 * 4,
-        (pairs_k7["evaluated"] + pairs_k7["to_last"]) * EVAL_OPS_PER_PAIR
-        + pairs_k7["applied"] * (BLEND_APPLY_OPS_PER_PAIR + TRACK_BWD_APPLY_OPS_PER_PAIR))
+    # slots whose cotangent is not zero. The blends' operations are those of
+    # the slots their warps applied (blend_ops: warp_visits), walked once
+    # forward and, for K1, K7 and K8, once more backward.
+    track_apply = BLEND_APPLY_OPS_PER_PAIR + TRACK_BWD_APPLY_OPS_PER_PAIR
+    b_k1, by_k1 = bound_ms(live_t * 10 * 4 + n_tiles * 4 * px * 4 + slots_t * 16 * 4,
+                           blend_ops(pairs_k1, 2, track_apply))
+    b_k7, by_k7 = bound_ms(live_t * 10 * 4 + n_tiles * 4 * px * 4 + slots_t * 16 * 4,
+                           blend_ops(pairs_k7, 2, track_apply))
     live_p = float(counts_p.sum())
     slots_p = counts_p.numel() * raw_p.shape[2]
-    b_k8, by_k8 = bound_ms(
-        live_p * 10 * 4 + gt_pairs.numel() * 4 + slots_p * 16 * 4,
-        (pairs_k8["evaluated"] + pairs_k8["to_last"]) * EVAL_OPS_PER_PAIR
-        + pairs_k8["applied"] * (BLEND_APPLY_OPS_PER_PAIR + TRACK_BWD_APPLY_OPS_PER_PAIR))
+    b_k8, by_k8 = bound_ms(live_p * 10 * 4 + gt_pairs.numel() * 4 + slots_p * 16 * 4,
+                           blend_ops(pairs_k8, 2, track_apply))
     b_k2f, by_k2f = bound_ms(slots_t * (14 + 16) * 4, slots_t * PROJ_OPS_PER_INSTANCE)
     b_k2b, by_k2b = bound_ms(
         slots_t * len(POSE_SCREEN_ROWS) * 4 + nz_k2b * POSE_RAW_ROWS * 4,
         nz_k2b * PROJ_ADJ_OPS_PER_INSTANCE)
+    # K3 reads the live instances' 10 rows and writes out, chunk_t and K6's
+    # residuals: the last applied slot per pixel and the visit words (one per
+    # warp, chunk and 32 slots).
+    words_r = n_tiles * n_chunks_r * (px // 32) * (rcfg.chunk // 32) * 4
     b_k3, by_k3 = bound_ms(
-        live_r * 10 * 4 + n_tiles * (8 + n_chunks_r + 1) * px * 4,
-        pairs_k3["evaluated"] * EVAL_OPS_PER_PAIR + pairs_k3["applied"] * BLEND_APPLY_OPS_PER_PAIR)
+        live_r * 10 * 4 + n_tiles * (8 + n_chunks_r + 1 + 1) * px * 4 + words_r,
+        blend_ops(pairs_k3, 1, BLEND_APPLY_OPS_PER_PAIR))
     # K4 reads the 10 blend rows of the live instances and writes the rows
     # out, the incoming T of every live chunk and the last applied slot per
     # pixel; K5 reads the same instances, those residuals, the final-T row
     # and six cotangent rows, and writes ten gradient rows per instance.
     resid_m = n_chunks_m * px * 4 + n_tiles * px * 4
-    b_k4, by_k4 = bound_ms(
-        live_m * 10 * 4 + n_tiles * 8 * px * 4 + resid_m,
-        pairs_k4["evaluated"] * EVAL_OPS_PER_PAIR + pairs_k4["applied"] * BLEND_APPLY_OPS_PER_PAIR)
-    b_k5, by_k5 = bound_ms(
-        live_m * 10 * 4 + resid_m + n_tiles * 7 * px * 4 + live_m * 10 * 4,
-        pairs_k4["to_last"] * EVAL_OPS_PER_PAIR + pairs_k4["applied"] * TRACK_BWD_APPLY_OPS_PER_PAIR)
-    # K6 reads the live instances' 10 blend rows, K3's residuals (chunk_t
-    # and the last applied slot) and six cotangent rows, and writes ten
-    # gradient rows per live instance, as K5; the rest of the block is the
-    # wrapper's zero fill (timed on its own above). Its pairs are K3's.
-    b_k6, by_k6 = bound_ms(
-        live_r * 10 * 4 + n_tiles * (n_chunks_r + 1 + 1 + 6) * px * 4 + live_r * 10 * 4,
-        pairs_k3["to_last"] * EVAL_OPS_PER_PAIR + pairs_k3["applied"] * TRACK_BWD_APPLY_OPS_PER_PAIR)
+    b_k4, by_k4 = bound_ms(live_m * 10 * 4 + n_tiles * 8 * px * 4 + resid_m,
+                           blend_ops(pairs_k4, 1, BLEND_APPLY_OPS_PER_PAIR))
+    b_k5, by_k5 = bound_ms(live_m * 10 * 4 + resid_m + n_tiles * 7 * px * 4 + live_m * 10 * 4,
+                           blend_ops(pairs_k4, 1, TRACK_BWD_APPLY_OPS_PER_PAIR))
+    # K6 reads the live instances' 10 blend rows, K3's residuals (chunk_t,
+    # the last applied slot, the visit words) and six cotangent rows, and
+    # writes the whole [T, 16, cap] gradient block (no wrapper fill: K6
+    # writes every element, as K1 does its block). Its pairs are K3's.
+    k6_read = live_r * 10 * 4 + n_tiles * (n_chunks_r + 1 + 1 + 6) * px * 4
+    b_k6, by_k6 = bound_ms(k6_read + words_r + n_tiles * 16 * rcfg.tile_capacity * 4,
+                           blend_ops(pairs_k3, 1, TRACK_BWD_APPLY_OPS_PER_PAIR))
+
+    # The per-pixel formulas, for comparison: every pair each pixel walks on
+    # its own (evaluated forward, to_last backward), no visit words written,
+    # and K6 writing ten gradient rows per live instance after a wrapper fill.
+    def per_pixel_ops(pr, fwd, bwd, apply_ops):
+        return (fwd * pr["evaluated"] + bwd * pr["to_last"]) * EVAL_OPS_PER_PAIR + (
+            pr["applied"] * apply_ops)
+
+    per_pixel = {
+        "K1": bound_ms(live_t * 10 * 4 + n_tiles * 4 * px * 4 + slots_t * 16 * 4,
+                       per_pixel_ops(pairs_k1, 1, 1, track_apply)),
+        "K3": bound_ms(live_r * 10 * 4 + n_tiles * (8 + n_chunks_r + 1) * px * 4,
+                       per_pixel_ops(pairs_k3, 1, 0, BLEND_APPLY_OPS_PER_PAIR)),
+        "K4": bound_ms(live_m * 10 * 4 + n_tiles * 8 * px * 4 + resid_m,
+                       per_pixel_ops(pairs_k4, 1, 0, BLEND_APPLY_OPS_PER_PAIR)),
+        "K5": bound_ms(live_m * 10 * 4 + resid_m + n_tiles * 7 * px * 4 + live_m * 10 * 4,
+                       per_pixel_ops(pairs_k4, 0, 1, TRACK_BWD_APPLY_OPS_PER_PAIR)),
+        "K6": bound_ms(k6_read + live_r * 10 * 4,
+                       per_pixel_ops(pairs_k3, 0, 1, TRACK_BWD_APPLY_OPS_PER_PAIR)),
+        "K7": bound_ms(live_t * 10 * 4 + n_tiles * 4 * px * 4 + slots_t * 16 * 4,
+                       per_pixel_ops(pairs_k7, 1, 1, track_apply)),
+        "K8": bound_ms(live_p * 10 * 4 + gt_pairs.numel() * 4 + slots_p * 16 * 4,
+                       per_pixel_ops(pairs_k8, 1, 1, track_apply)),
+    }
+    floor = {"K1": (b_k1, by_k1), "K3": (b_k3, by_k3), "K4": (b_k4, by_k4), "K5": (b_k5, by_k5),
+             "K6": (b_k6, by_k6), "K7": (b_k7, by_k7), "K8": (b_k8, by_k8)}
+    print("# blend bounds, ms (the slots the warps applied; the per-pixel formula): "
+          + ", ".join(f"{k} {floor[k][0]:.4f} by {floor[k][1]} ({per_pixel[k][0]:.4f} by "
+                      f"{per_pixel[k][1]})" for k in floor), flush=True)
     for name, pr in (("K1", pairs_k1), ("K7", pairs_k7), ("K8", pairs_k8), ("K4 / K5", pairs_k4)):
         print(f"# {name} backward (lane, slot) pairs: {pr['warp_visits']} visited (the slots "
               f"each warp applied) against {pr['to_last']} to each pixel's last applied slot "
               f"({pr['warp_visits'] / max(pr['to_last'], 1):.4f})", flush=True)
+    print(f"# K3 forward (lane, slot) pairs on the render bins: {pairs_k3['warp_kept']} kept "
+          f"by the footprint cull against {pairs_k3['evaluated']} evaluated per pixel "
+          f"({pairs_k3['warp_kept'] / max(pairs_k3['evaluated'], 1):.4f}); the visit words' "
+          f"floor {pairs_k3['warp_visits']}", flush=True)
+    print(f"# K6 backward (lane, slot) pairs on the render bins: {pairs_k3['warp_visits']} "
+          f"visited against {pairs_k3['to_last']} to each pixel's last applied slot "
+          f"({pairs_k3['warp_visits'] / max(pairs_k3['to_last'], 1):.4f})", flush=True)
     print(f"# K4 forward (lane, slot) pairs: {pairs_k4['warp_kept']} kept by the footprint "
           f"cull against {pairs_k4['evaluated']} evaluated per pixel "
           f"({pairs_k4['warp_kept'] / max(pairs_k4['evaluated'], 1):.4f}); the visit words' "

@@ -13,10 +13,11 @@ measures, at ``chip_smoke.py``'s main-path shapes (the bench scene of
   tracking capacity of ``--caps``), K4 and K5 under both stop rules on the
   render bins' flat layout (chip_smoke's phase 7) and, unless
   ``--kernels-only``, on the mapping step's layout
-  (``chip_smoke.phase_mapping``), K6 on the render bins, K9's variants
-  (``profile_fused_ablate``);
-- a SHA-256 of each kernel's outputs (K4's visit words included), so two
-  trees' results can be compared bit for bit across processes;
+  (``chip_smoke.phase_mapping``), K3 and K6 under both stop rules on the
+  render bins, K9's variants (``profile_fused_ablate``);
+- a SHA-256 of each kernel's outputs (K4's visit words included; K3's words
+  apart from its other outputs, which a tree without words also has), so
+  two trees' results can be compared bit for bit across processes;
 - K2b's device launches per call and, unless ``--kernels-only``, a
   tracking frame's, counted by ``torch.profiler``;
 - unless ``--kernels-only``: tracking ms per iteration (``track_frame``, 200
@@ -197,11 +198,23 @@ def measure(kernels_only: bool, frames: int, caps: list[int]) -> dict:
             timed("K8" + at, lambda: tracking_loss_grad_paired(
                 screen_p, bins_p.counts, gt_pairs, cam, rcfg_p, *w, tile_ids=perm),
                 digest=lambda r: r)
-        out_r, ct_r, last_r = blend_forward(packed_r, bins_r.counts, cam, rcfg)
-        g_r = torch.randn(out_r.shape, generator=torch.Generator().manual_seed(2)).to(dev)
-        g_r[:, 5] = g_r[:, 7] = 0.0
-        timed("K6", lambda: blend_backward(packed_r, bins_r.counts, ct_r, last_r, g_r, cam, rcfg),
-              digest=lambda r: (r,))
+        # K3 and K6 on the render bins under both stop rules. Only a tree
+        # whose K3 records visit words returns them (and only its K6 takes
+        # them): K3's digest is of its rows, chunk_t and last slots, its
+        # words have a digest of their own, and K6 takes whatever residuals
+        # its tree's K3 returned.
+        for exact in (False, True):
+            cfg = dataclasses.replace(rcfg, exact_stop=exact)
+            at = " exact" if exact else ""
+            fwd = blend_forward(packed_r, bins_r.counts, cam, cfg)
+            timed("K3" + at, lambda: blend_forward(packed_r, bins_r.counts, cam, cfg),
+                  digest=lambda r: r[:3])
+            if len(fwd) > 3:
+                res["digest"]["K3 words" + at] = _digest(fwd[3])
+            g_r = torch.randn(fwd[0].shape, generator=torch.Generator().manual_seed(2)).to(dev)
+            g_r[:, 5] = g_r[:, 7] = 0.0
+            timed("K6" + at, lambda: blend_backward(packed_r, bins_r.counts, *fwd[1:], g_r, cam,
+                                                     cfg), digest=lambda r: (r,))
 
     # K4 / K5 on the render bins' flat layout (chip_smoke's phase 7) under
     # both stop rules and, unless --kernels-only, at the mapping step's

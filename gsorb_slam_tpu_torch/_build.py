@@ -71,7 +71,7 @@ ABLATE_VARIANTS = ("full", "fwd", "noexp", "noreduce", "min", "half2")
 # K1, K7, K8 and K9's variants share one argument list.
 _TRACK_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]
 _SIGNATURES = {
-    "gsorb_blend_forward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gsorb_blend_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gsorb_blend_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gsorb_blend_flat_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gsorb_blend_flat_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -39,17 +39,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Copies the N_BLEND attribute rows of one chunk [K] of a tile's packed
-// block into shared memory (row-major [N_BLEND][K]), coalesced along K.
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ tile_pk, int cap,
-                                            int base, int K, float* __restrict__ attr) {
-  for (int i = threadIdx.x; i < N_BLEND * K; i += blockDim.x) {
-    const int r = i / K;
-    const int k = i - r * K;
-    attr[i] = tile_pk[(size_t)r * cap + base + k];
-  }
-}
-
 constexpr int WIN = 64;  // slots per backward window (one slab column each)
 
 // The backward of one applied (pixel, instance) pair of the reverse walk:
@@ -111,109 +100,7 @@ __device__ __forceinline__ void warp_slot_sums(const float* v, float* sw, int la
   if ((lane & 1) == 0 && (lane >> 1) < N_GRAD) sw[(lane >> 1) * WIN] = a[0];
 }
 
-// K6's reverse walk over one tile's chunks (K3's per-tile backward), run by
-// the tile's block, one thread per pixel. K5 and the tracking kernels walk
-// only the slots their warps applied (blend_backward_visited, below); K6
-// has no visit words from K3 and walks every slot up to each pixel's last.
-//
-// Chunk i (0 <= i < n_chunks, in depth order) holds K instances at
-// pk + i * chunk_stride, its attribute rows row_stride floats apart; its
-// gradients go to the same offsets of gr (zero-filled by the caller), and
-// ct + i * px holds its incoming T per pixel (0 once the pixel is done).
-// last is the pixel's last applied slot (i * K + k, -1 for none), t_final
-// its final T, g = its cotangents of (r, g, b, depth, alpha, final T).
-// smem holds N_BLEND * WIN + n_warps * N_GRAD * WIN floats.
-//
-// Each pixel's suffix sum starts at final T x its cotangent; the
-// transmittance is rebuilt backwards by division by (1 - alpha) and
-// re-anchored at every chunk boundary to the next chunk's stored incoming
-// T, so the rebuild never runs longer than one chunk. Each applied pair's
-// terms come from pair_backward; the per-instance sums over the tile's
-// pixels are warp_slot_sums into one shared-memory slab per warp (zeros
-// where no lane of the warp applied the slot), added in warp order: no
-// float atomics, bitwise reproducible. The walk differs from the visited
-// one below only in how it chooses slots and in its row layout.
-__device__ __forceinline__ void blend_backward_chunks(
-    const float* __restrict__ pk, float* __restrict__ gr, const float* __restrict__ ct,
-    int n_chunks, int K, size_t chunk_stride, int row_stride, float pu, float pv, int last,
-    float t_final, const float* g, float* smem) {
-  float* attr = smem;                  // [N_BLEND][WIN]
-  float* slab = smem + N_BLEND * WIN;  // [n_warps][N_GRAD][WIN] per-warp sums
-  const int p = threadIdx.x;
-  const int px = blockDim.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
-  const int n_warps = px >> 5;
-  const float g_r = g[0], g_g = g[1], g_b = g[2], g_d = g[3], g_s = g[4], g_t = g[5];
-  float Tb = t_final;             // transmittance after the instance being visited
-  float suffix = t_final * g_t;   // final-T term + sum over later applied w * phi
-
-  for (int i = n_chunks - 1; i >= 0; --i) {
-    // T after chunk i is the next chunk's incoming T while the pixel was
-    // still blending there; otherwise nothing applied after chunk i and the
-    // running Tb already holds it.
-    if (i + 1 < n_chunks) {
-      const float tn = ct[(size_t)(i + 1) * px + p];
-      if (tn > 0.f) Tb = tn;
-    }
-    const int pos0 = i * K;
-    if (!__syncthreads_or(last >= pos0)) continue;  // no pixel applied any of it
-    const float* pc = pk + (size_t)i * chunk_stride;
-    float* gc = gr + (size_t)i * chunk_stride;
-    for (int base = ((K + WIN - 1) / WIN - 1) * WIN; base >= 0; base -= WIN) {
-      const int kmax = min(WIN, K - base);
-      if (!__syncthreads_or(last >= pos0 + base)) continue;  // also fences attr / slab
-      for (int j = p; j < N_BLEND * WIN; j += px) {
-        const int r = j / WIN;
-        const int kk = j - r * WIN;
-        attr[j] = kk < kmax ? pc[(size_t)r * row_stride + base + kk] : 0.f;
-      }
-      __syncthreads();
-      for (int k = kmax - 1; k >= 0; --k) {
-        float v[N_GRAD];
-#pragma unroll
-        for (int j = 0; j < N_GRAD; ++j) v[j] = 0.f;
-        bool has = false;
-        if (pos0 + base + k <= last) {
-          float d0, d1;
-          const float ca = attr[CA * WIN + k], cb = attr[CB * WIN + k];
-          const float cc = attr[CC * WIN + k], op = attr[OP * WIN + k];
-          const float power = falloff_power(attr[MU * WIN + k], attr[MV * WIN + k], ca, cb,
-                                            cc, pu, pv, &d0, &d1);
-          const float alpha = fminf(ALPHA_CLAMP, op * expf(power));
-          if (power <= 0.f && alpha >= MIN_ALPHA) {
-            const float phi = g_r * attr[CR * WIN + k] + g_g * attr[CG * WIN + k] +
-                              g_b * attr[CBL * WIN + k] + g_d * attr[Z * WIN + k] + g_s;
-            pair_backward(alpha, op, ca, cb, cc, d0, d1, phi, g_r, g_g, g_b, g_d, Tb, suffix, v);
-            has = true;
-          }
-        }
-        float* sw = slab + (size_t)warp * N_GRAD * WIN + k;
-        if (__any_sync(FULL_MASK, has)) {
-          warp_slot_sums(v, sw, lane);
-        } else if (lane == 0) {
-#pragma unroll
-          for (int j = 0; j < N_GRAD; ++j) sw[j * WIN] = 0.f;
-        }
-      }
-      __syncthreads();
-      for (int j = p; j < N_GRAD * kmax; j += px) {
-        const int r = j / kmax;
-        const int kk = j - r * kmax;
-        float s = 0.f;
-        for (int w = 0; w < n_warps; ++w) s += slab[((size_t)w * N_GRAD + r) * WIN + kk];
-        gc[(size_t)r * row_stride + base + kk] = s;
-      }
-    }
-  }
-}
-
-// Dynamic shared memory of blend_backward_chunks for a tile of px pixels.
-inline size_t blend_backward_smem(int px) {
-  return ((size_t)N_BLEND * WIN + (size_t)(px / 32) * N_GRAD * WIN) * sizeof(float);
-}
-
-// ---- The visited-slot reverse walk (K1, K7, K8, K9 in fused_track.cu; K5) ----
+// ---- The visited-slot reverse walk (K1, K7, K8, K9 in fused_track.cu; K5; K6) ----
 //
 // What bounds a blend backward on the H100 is the work per (pixel,
 // instance) pair, ~53 f32 operations per applied pair and the gate again
@@ -233,7 +120,7 @@ inline size_t blend_backward_smem(int px) {
 // The per-slot sums over a warp's lanes are a halving tree of shuffles into
 // the warp's slab; a window's sums over warps add, in warp order, only the
 // warps whose bit is set: no float atomics, every rerun bit for bit. The
-// rows are staged per slot (K5: each chunk once; K1: each chunk for the
+// rows are staged per slot (K5, K6: each chunk once; K1: each chunk for the
 // forward, each window again for the backward), so a pair's falloff
 // inputs are two 16-byte broadcast loads. No tensor cores: the pixel sums are the only
 // contraction, 10-13% of K1's time (K9's noreduce); the rest is elementwise
@@ -261,6 +148,174 @@ __device__ __forceinline__ void stage_slots(float* __restrict__ rows,
     for (int r = 0; r < N_BLEND; ++r)
       rows[(size_t)s * SLOT_F + slot_field(r)] = src[(size_t)r * row_stride + s];
   }
+}
+
+// ---- The forward's footprint cull (K3 in blend_forward.cu, K4 in blend_flat.cu) ----
+//
+// A TPU kernel evaluates whole [px, K] blocks; a GPU warp can skip a slot
+// for all its 32 pixels at once. So the thread that stages a slot also
+// writes the slot's footprint into the two spare floats of its SLOT_F
+// layout: the half-extents of the box around its {alpha >= 1/255}
+// ellipse, widened for f32 rounding. Each warp tests 32 slots at a time
+// against the rectangle of its 32 pixel centres (16 x 2 at tile 16) with
+// one ballot, then walks the kept bits in ascending order. A culled pair
+// cannot pass power <= 0 and alpha >= 1/255, so every output is that of the
+// walk over every slot, bit for bit, under both stop rules.
+//
+// blend_kernels.footprint_extents is slot_extents' plain version and says
+// where each margin comes from. A slot whose opacity is below FOOT_OP_MIN
+// gets ex = -1 (no pixel can apply it), one whose conic cannot be bounded
+// ex = ey = inf (always evaluated).
+constexpr float FOOT_OP_MIN = MIN_ALPHA * (1.f - 1e-5f);
+constexpr float FOOT_Q_REL = 2e-6f;
+constexpr float FOOT_REL = 1e-5f;
+constexpr float FOOT_PAD_PX = 1e-3f;
+// Where a staged slot keeps its half-extents: the spare floats of the
+// SLOT_F layout, {cc, op, z, ex} and {r, g, b, ey}.
+constexpr int EX_F = 7, EY_F = 11;
+
+__device__ __forceinline__ void slot_extents(float ca, float cb, float cc, float op, float* ex,
+                                             float* ey) {
+  if (op < FOOT_OP_MIN) {
+    *ex = *ey = -1.f;
+    return;
+  }
+  const float det = ca * cc - cb * cb;
+  const float tr = ca + cc;
+  const float rho = FOOT_Q_REL * tr * tr / det;
+  if (!(ca > 0.f && cc > 0.f && det > 0.f && rho < 0.5f)) {
+    *ex = *ey = __int_as_float(0x7f800000);  // +inf
+    return;
+  }
+  const float tau =
+      (fmaxf(2.f * logf(255.f * op), 0.f) * (1.f + FOOT_REL) + FOOT_REL) / (1.f - rho);
+  *ex = sqrtf(tau * cc / det) * (1.f + FOOT_REL) + FOOT_PAD_PX;
+  *ey = sqrtf(tau * ca / det) * (1.f + FOOT_REL) + FOOT_PAD_PX;
+}
+
+// stage_slots of slots [0, K), each slot's half-extents written by the
+// thread that staged it.
+__device__ __forceinline__ void stage_slots_with_extents(float* __restrict__ rows,
+                                                         const float* __restrict__ src,
+                                                         int row_stride, int K, int p, int np) {
+  stage_slots(rows, src, row_stride, 0, K, p, np);
+  for (int s = p; s < K; s += np) {  // the slots this thread staged
+    float* r = rows + (size_t)s * SLOT_F;
+    slot_extents(r[CA], r[CB], r[slot_field(CC)], r[slot_field(OP)], r + EX_F, r + EY_F);
+  }
+}
+
+// The rectangle of the warp's 32 pixel centres.
+struct WarpRect {
+  float x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ WarpRect warp_rect(float pu, float pv) {
+  WarpRect r{pu, pu, pv, pv};
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    r.x0 = fminf(r.x0, __shfl_xor_sync(FULL_MASK, r.x0, off));
+    r.x1 = fmaxf(r.x1, __shfl_xor_sync(FULL_MASK, r.x1, off));
+    r.y0 = fminf(r.y0, __shfl_xor_sync(FULL_MASK, r.y0, off));
+    r.y1 = fmaxf(r.y1, __shfl_xor_sync(FULL_MASK, r.y1, off));
+  }
+  return r;
+}
+
+// Whether staged slot s's footprint box meets the warp's rectangle.
+__device__ __forceinline__ bool footprint_meets(const float4* __restrict__ rows4, int s,
+                                                const WarpRect& w) {
+  const float4 A = rows4[3 * s], B = rows4[3 * s + 1], C = rows4[3 * s + 2];
+  return !(B.w < 0.f) && !(A.x + B.w < w.x0) && !(A.x - B.w > w.x1) && !(A.y + C.w < w.y0) &&
+         !(A.y - C.w > w.y1);
+}
+
+// A pixel's front-to-back blend state.
+struct Blend {
+  float T = 1.f, Cr = 0.f, Cg = 0.f, Cb = 0.f, D = 0.f, S = 0.f, Med = 0.f;
+  int last = -1;  // the pixel's last applied slot (-1 for none)
+  bool done = false;
+};
+
+// One staged chunk of the culled forward walk (K3, K4), run by each warp:
+// per 32 slots j of [0, kmax), one ballot of the slots whose footprint meets
+// the warp's rectangle, then the kept bits in ascending order, the whole
+// warp together; a lane that is done sits the rest out, and the warp leaves
+// the chunk once all its lanes are done. The stop rules and the median are
+// the original renderer's: fast (exact == 0) = an instance applies while
+// its incoming T >= 1e-4; exact = the instance whose blend would take T
+// below 1e-4 is not applied; median = z of the last applied instance with
+// incoming T > 0.5. pos0 is the chunk's first slot in the pixel's order
+// (b.last = pos0 + k). Visit words without atomics: per walked slot the warp
+// votes whether any lane applied it, and lane 0 writes word j of vw (bit b:
+// slot 32 j + b), every word of [0, kw), zeros included. No exp skip: K1's skip of the exp below a
+// falloff exponent of -5.6 made this walk 4% slower (the lanes of a warp
+// evaluate one kept slot together, and near a footprint they rarely all
+// fall below the cut).
+__device__ __forceinline__ void blend_chunk_culled(const float4* __restrict__ rows4, int kmax,
+                                                   int kw, const WarpRect& rect, float pu,
+                                                   float pv, int exact, int pos0, int lane,
+                                                   Blend& b, unsigned* __restrict__ vw) {
+  int j = 0;
+  bool warp_done = !__any_sync(FULL_MASK, !b.done);
+  for (; j < kw && !warp_done; ++j) {
+    const int sl = 32 * j + lane;
+    unsigned m = __ballot_sync(FULL_MASK, sl < kmax && footprint_meets(rows4, sl, rect));
+    unsigned word = 0u;
+    while (m != 0u) {
+      const int bit = __ffs(m) - 1;
+      m &= m - 1u;
+      const int k = 32 * j + bit;
+      bool applied = false;
+      if (!b.done) {
+        const float4 A = rows4[3 * k], B = rows4[3 * k + 1];
+        float d0, d1;
+        const float power = falloff_power(A.x, A.y, A.z, A.w, B.x, pu, pv, &d0, &d1);
+        if (!(power > 0.f)) {  // a NaN power goes on, as in the per-pixel walk
+          const float alpha = fminf(ALPHA_CLAMP, B.y * expf(power));
+          if (alpha >= MIN_ALPHA) {
+            const float Tn = b.T * (1.f - alpha);
+            if (exact && Tn < STOP_T) {
+              b.done = true;
+            } else {
+              const float w = alpha * b.T;
+              const float4 C = rows4[3 * k + 2];
+              const float z = B.z;
+              b.Cr += w * C.x;
+              b.Cg += w * C.y;
+              b.Cb += w * C.z;
+              b.D += w * z;
+              b.S += w;
+              if (b.T > 0.5f) b.Med = z;
+              b.T = Tn;
+              b.last = pos0 + k;
+              applied = true;
+              if (!exact && b.T < STOP_T) b.done = true;
+            }
+          }
+        }
+      }
+      if (__any_sync(FULL_MASK, applied)) word |= 1u << bit;
+      warp_done = !__any_sync(FULL_MASK, !b.done);
+      if (warp_done) break;
+    }
+    if (lane == 0) vw[j] = word;
+  }
+  for (int jj = j + lane; jj < kw; jj += 32) vw[jj] = 0u;
+}
+
+// The blend rows of pixel p (px pixels per tile) at o:
+// (r, g, b, blended depth, alpha = sum w, median depth, final T, 0).
+__device__ __forceinline__ void write_blend_rows(float* __restrict__ o, int px, int p,
+                                                 const Blend& b) {
+  o[0 * px + p] = b.Cr;
+  o[1 * px + p] = b.Cg;
+  o[2 * px + p] = b.Cb;
+  o[3 * px + p] = b.D;
+  o[4 * px + p] = b.S;
+  o[5 * px + p] = b.Med;
+  o[6 * px + p] = b.T;
+  o[7 * px + p] = 0.f;
 }
 
 // Marks slot s as applied by this lane in its warp's visit words.
@@ -321,18 +376,27 @@ __device__ __forceinline__ void zero_slots(float* __restrict__ gr, int row_strid
     for (int s = s0 + p; s < s1; s += np) gr[(size_t)r * row_stride + s] = 0.f;
 }
 
-// K5's reverse walk over one tile's chunks of the flat list, one thread per
-// pixel, visiting only the slots its warp applied. Chunk i (0 <= i <
-// n_chunks) holds K instances at pk + i * N_ATTR * K (rows K apart), its
-// gradients at the same offset of gr (every slot written, zeros included),
-// its incoming T per pixel at ct + i * px, and its visit words (kw =
-// ceil(K / 32) per warp) at vis + i * n_warps * kw. last, t_final and g as
-// for blend_backward_chunks. Each chunk's rows and words are staged once.
+// The visited-slot reverse walk over one tile's chunks (K5 over the flat
+// list, K6 over the per-tile pack), run by the tile's block, one thread per
+// pixel. Chunk i (0 <= i < n_chunks, in depth order) holds K instances at
+// pk + i * chunk_stride, its attribute rows row_stride floats apart (K5:
+// N_ATTR * K and K; K6: K and cap); its gradients go to the same offsets of
+// gr (every element of the chunk's N_ATTR rows written, zeros included),
+// ct + i * px holds its incoming T per pixel (0 once the pixel is done) and
+// vis + i * n_warps * kw its visit words (kw = ceil(K / 32) per warp). last
+// is the pixel's last applied slot (i * K + k, -1 for none), t_final its
+// final T, g = its cotangents of (r, g, b, depth, alpha, final T). Each
+// chunk's rows and words are staged once; a chunk no pixel reached is
+// zeroed. The suffix sum starts at final T x its cotangent (that couples
+// the background into the colour gradient); the transmittance is rebuilt
+// backwards by division by (1 - alpha) and re-anchored at every chunk
+// boundary to the next chunk's stored incoming T, so the rebuild never runs
+// longer than one chunk.
 // smem: rows [K][SLOT_F], words [n_warps][kw], slab [n_warps][N_GRAD][WIN].
 __device__ __forceinline__ void blend_backward_visited(
     const float* __restrict__ pk, float* __restrict__ gr, const float* __restrict__ ct,
-    const unsigned* __restrict__ vis, int n_chunks, int K, float pu, float pv, int last,
-    float t_final, const float* g, float* smem) {
+    const unsigned* __restrict__ vis, int n_chunks, int K, size_t chunk_stride, int row_stride,
+    float pu, float pv, int last, float t_final, const float* g, float* smem) {
   const int p = threadIdx.x;
   const int px = blockDim.x;
   const int lane = p & 31;
@@ -340,7 +404,6 @@ __device__ __forceinline__ void blend_backward_visited(
   const int n_warps = px >> 5;
   const int kw = (K + 31) >> 5;
   const int nwk = n_warps * kw;
-  const size_t chunk = (size_t)N_ATTR * K;
   float* rows = smem;                                                        // [K * SLOT_F]
   unsigned* words = reinterpret_cast<unsigned*>(smem + (size_t)K * SLOT_F);  // [nwk]
   float* slab = reinterpret_cast<float*>(words + nwk);  // [n_warps][N_GRAD][WIN]
@@ -357,13 +420,13 @@ __device__ __forceinline__ void blend_backward_visited(
       const float tn = ct[(size_t)(i + 1) * px + p];
       if (tn > 0.f) Tb = tn;
     }
-    float* gc = gr + i * chunk;
+    float* gc = gr + i * chunk_stride;
     // Also fences the last chunk's readers of rows, words and slab.
     if (!__syncthreads_or(last >= i * K)) {  // no pixel applied any of it
-      zero_slots(gc, K, 0, K, p, px);
+      zero_slots(gc, row_stride, 0, K, p, px);
       continue;
     }
-    stage_slots(rows, pk + i * chunk, K, 0, K, p, px);
+    stage_slots(rows, pk + i * chunk_stride, row_stride, 0, K, p, px);
     for (int j = p; j < nwk; j += px) words[j] = vis[(size_t)i * nwk + j];
     for (int base = ((K + WIN - 1) / WIN - 1) * WIN; base >= 0; base -= WIN) {
       __syncthreads();  // the chunk is staged; the last window's slab readers are done
@@ -386,7 +449,8 @@ __device__ __forceinline__ void blend_backward_visited(
         warp_slot_sums(v, slab + (size_t)warp * N_GRAD * WIN + (k - base), lane);
       });
       __syncthreads();
-      write_window(gc, K, base, min(WIN, K - base), slab, words, kw, 0, n_warps, p, px);
+      write_window(gc, row_stride, base, min(WIN, K - base), slab, words, kw, 0, n_warps, p,
+                   px);
     }
   }
 }

@@ -64,6 +64,18 @@ TRACK_BWD_APPLY_OPS_PER_PAIR = 53
 PROJ_OPS_PER_INSTANCE = 160
 PROJ_ADJ_OPS_PER_INSTANCE = 480
 
+
+def blend_ops(pairs: dict, walks: int, apply_ops: int) -> float:
+    """The f32 operations a blend needs on this run's data (``pairs`` as
+    the plain blends report them): EVAL_OPS_PER_PAIR on each (lane, slot)
+    pair of the slots that some lane of the warp applied (``warp_visits``),
+    once per walk (1: a forward; 2: a forward and its backward), plus
+    ``apply_ops`` on each applied pair. A warp evaluates a slot for its 32
+    lanes at once and no other slot needs evaluating, so warp_visits is the
+    floor of any warp's walk; the pairs a pixel walks on its own
+    (``evaluated``, ``to_last``) are what a walk of every slot costs."""
+    return walks * pairs["warp_visits"] * EVAL_OPS_PER_PAIR + pairs["applied"] * apply_ops
+
 # bench.py's initial tracking offset (m).
 T_INIT_TRANS = (0.01, -0.005, 0.008)
 
@@ -220,14 +232,21 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The __global__ functions of csrc/, as the profiler names them.
+PORT_KERNELS = ("blend_forward_kernel", "blend_backward_kernel", "blend_flat_fwd_kernel",
+                "blend_flat_bwd_kernel", "fused_track_kernel", "preprocess_fwd_kernel",
+                "preprocess_bwd_kernel")
+
+
 def profile_call(fn: Callable[[], object], dev: torch.device, best_ms: float | None = None,
                  top: int = 8) -> dict | None:
     """One call of ``fn`` under ``torch.profiler``: ``wall_ms`` (profiled),
     ``kernel_ms`` (device time), ``busy`` (kernel time over the profiled
     wall time), ``busy_of_best`` (over ``best_ms``, an unprofiled call: the
     profiler slows the host, not the kernels), ``launches`` (device
-    activities: kernels, copies and fills) and the ``top`` kernels by
-    device time. ``None`` on the CPU (no device to measure) and where the
+    activities: kernels, copies and fills), the ``top`` kernels by device
+    time and, under ``port``, every kernel of csrc/ that ran, wherever it
+    ranks. ``None`` on the CPU (no device to measure) and where the
     profiler recorded no device time."""
     if dev.type != "cuda":
         return None
@@ -244,14 +263,16 @@ def profile_call(fn: Callable[[], object], dev: torch.device, best_ms: float | N
     kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
     if kernel_ms <= 0:
         return None
+    ranked = [{"ms": e.self_device_time_total / 1e3, "count": e.count, "name": e.key[:90]}
+              for e in sorted(events, key=lambda e: -e.self_device_time_total)]
     return {
         "wall_ms": wall,
         "kernel_ms": kernel_ms,
         "busy": kernel_ms / wall,
         "busy_of_best": kernel_ms / best_ms if best_ms else None,
         "launches": sum(e.count for e in events),
-        "top": [{"ms": e.self_device_time_total / 1e3, "count": e.count, "name": e.key[:90]}
-                for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]],
+        "top": ranked[:top],
+        "port": [e for e in ranked if any(k in e["name"] for k in PORT_KERNELS)],
     }
 
 
@@ -265,6 +286,8 @@ def profile_lines(prof: dict | None, what: str) -> list[str]:
              f"kernels in {prof['launches']} launches; device busy {prof['busy']:.4f} of the "
              f"profiled call{best}"]
     lines += [f"#   {e['ms']:9.3f} ms  {e['count']:5d} x  {e['name']}" for e in prof["top"]]
+    lines += [f"#   csrc/: {e['ms']:9.3f} ms  {e['count']:5d} x  {e['name']}"
+              for e in prof["port"]]
     return lines
 
 

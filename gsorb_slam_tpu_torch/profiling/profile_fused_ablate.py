@@ -83,15 +83,14 @@ def main(argv: list[str] | None = None) -> dict:
     units = n_tiles * ABLATE_CHUNKS
     # The least time for "full" and "fwd": they read the ten blend rows of
     # every walked slot and the gt tiles and write the whole gradient block
-    # (zeros past the walk; all zeros for fwd); full evaluates each pair twice
-    # up to the pixel's last applied instance, fwd once.
+    # (zeros past the walk; all zeros for fwd); full walks the slots its
+    # warps applied twice, fwd once (common.blend_ops).
     n_bytes = (n_tiles * 10 * view.shape[2] + gt4.numel() + n_tiles * 16 * cap) * 4
-    e, a, tl = k9_pairs["evaluated"], k9_pairs["applied"], k9_pairs["to_last"]
     bounds = {
-        "full": common.bound_ms(n_bytes, (e + tl) * common.EVAL_OPS_PER_PAIR + a * (
-            common.BLEND_APPLY_OPS_PER_PAIR + common.TRACK_BWD_APPLY_OPS_PER_PAIR)),
-        "fwd": common.bound_ms(n_bytes, e * common.EVAL_OPS_PER_PAIR
-                               + a * common.BLEND_APPLY_OPS_PER_PAIR),
+        "full": common.bound_ms(n_bytes, common.blend_ops(k9_pairs, 2, (
+            common.BLEND_APPLY_OPS_PER_PAIR + common.TRACK_BWD_APPLY_OPS_PER_PAIR))),
+        "fwd": common.bound_ms(n_bytes, common.blend_ops(k9_pairs, 1,
+                                                         common.BLEND_APPLY_OPS_PER_PAIR)),
     }
     print(f"# K9: {ABLATE_CHUNKS} chunks of {cfg.chunk} per tile over {n_tiles} tiles "
           f"({units} chunk-units), capacity {args.capacity}; pairs {json.dumps(k9_pairs)}; "

@@ -228,7 +228,7 @@ def blend_tiles(
     each group of 32 consecutive pixels, a warp, which walks only those)
     and ``warp_kept`` (the pairs a forward evaluates whose warps walk only
     the slots :func:`footprint_keep` keeps, up to the slot where the warp's
-    last lane stops: 32 x those (warp, slot) pairs; K4's walk)."""
+    last lane stops: 32 x those (warp, slot) pairs; K3's and K4's walk)."""
     if exact and not stop:
         raise ValueError("the exact stop rule has no no-stop variant")
     n_tiles, _, cap = packed.shape
@@ -331,7 +331,7 @@ def _visit_words(warp_apply: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
 
 
-# K4's footprint cull (csrc/blend_flat.cu, slot_extents): a slot whose
+# K3's and K4's footprint cull (csrc/common.cuh, slot_extents): a slot whose
 # opacity is below FOOT_OP_MIN cannot pass the 1/255 gate anywhere (exp <= 1;
 # the factor covers expf's and the product's rounding); otherwise its
 # {alpha >= 1/255} ellipse d^T C d <= tau, tau = 2 ln(255 op), has the
@@ -351,8 +351,8 @@ FOOT_PAD_PX = 1e-3
 def footprint_extents(
     ca: torch.Tensor, cb: torch.Tensor, cc: torch.Tensor, op: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4's per-slot half-extents ``(ex, ey)`` (float32, as the kernel
-    computes them): -1 for a slot no pixel can apply, inf for one that
+    """K3's and K4's per-slot half-extents ``(ex, ey)`` (float32, as the
+    kernels compute them): -1 for a slot no pixel can apply, inf for one that
     cannot be bounded."""
     det = ca * cc - cb * cb
     tr = ca + cc
@@ -372,8 +372,9 @@ def footprint_extents(
 def footprint_keep(packed: torch.Tensor, pu: torch.Tensor, pv: torch.Tensor) -> torch.Tensor:
     """``[T, px / 32, K]`` bool: the slots of ``packed [T, 16, K]`` whose
     footprint box meets the rectangle of pixel centres of each warp (32
-    consecutive pixels of ``pu``, ``pv [T, px]``). K4 evaluates only these
-    (lane, slot) pairs; every pair that passes the gate is among them."""
+    consecutive pixels of ``pu``, ``pv [T, px]``). K3 and K4 evaluate only
+    these (lane, slot) pairs (K3 also only the slots below the tile's
+    count); every pair that passes the gate is among them."""
     n_tiles, px = pu.shape
     ex, ey = footprint_extents(packed[:, CA], packed[:, CB], packed[:, CC], packed[:, OP])
     mu, mv = packed[:, MU, None, :], packed[:, MV, None, :]  # [T, 1, K]
@@ -403,12 +404,19 @@ def blend_forward_plain(
     cam: Camera,
     cfg: RasterConfig,
     pairs: dict[str, int] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3's plain version: ``(out [T, 8, px], chunk_t [T, n_chunks+1, px],
-    last [T, px])``; ``pairs`` as in :func:`blend_tiles`."""
+    last [T, px], visit [T, n_chunks, px / 32, ceil(K / 32)])`` as the
+    kernel writes them (``visit`` as in :func:`blend_tiles`: zero for the
+    chunks past a tile's count); ``pairs`` as in :func:`blend_tiles`."""
     pu, pv = _tile_grid_pixels(packed, cam, cfg)
     return blend_tiles(packed, counts, pu, pv, cfg.chunk, cfg.exact_stop, False, pairs,
-                       with_last=True)
+                       with_last=True, with_visit=True)
+
+
+def _words(K: int) -> int:
+    """Visit words per warp and chunk: one per 32 slots."""
+    return -(-K // 32)
 
 
 def _tile_args(packed: torch.Tensor, counts: torch.Tensor, cam: Camera, cfg: RasterConfig):
@@ -429,11 +437,14 @@ def blend_forward(
     counts: torch.Tensor,
     cam: Camera,
     cfg: RasterConfig,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3: the per-tile forward blend -> ``(out [T, 8, px], chunk_t
-    [T, n_chunks + 1, px], last [T, px])``; ``chunk_t`` and ``last`` (the
-    slot of each pixel's last applied instance, -1 for none) are K6's
-    residuals. CUDA tensors launch the kernel, CPU tensors take
+    [T, n_chunks + 1, px], last [T, px], visit [T, n_chunks, px / 32,
+    ceil(K / 32)])``; the last three are K6's residuals: ``last`` the slot
+    of each pixel's last applied instance (-1 for none), ``visit`` the
+    visit words (int32; bit b of word j of warp w in chunk c is set iff one
+    of the warp's 32 pixels applied slot c K + 32 j + b). The kernel writes
+    every element of each. CUDA tensors launch the kernel, CPU tensors take
     :func:`blend_forward_plain`. Forward only: differentiate through
     :func:`blend`."""
     if not packed.is_cuda:
@@ -445,15 +456,16 @@ def blend_forward(
     out = torch.empty((n_tiles, 8, px), dtype=torch.float32, device=dev)
     chunk_t = torch.empty((n_tiles, n_chunks + 1, px), dtype=torch.float32, device=dev)
     last = torch.empty((n_tiles, px), dtype=torch.int32, device=dev)
+    visit = torch.empty((n_tiles, n_chunks, px // 32, _words(K)), dtype=torch.int32, device=dev)
     lib = _build.library()
     _build.count_launch("blend_forward")
     err = lib.gsorb_blend_forward(
         packed.data_ptr(), counts.data_ptr(), out.data_ptr(), chunk_t.data_ptr(),
-        last.data_ptr(), n_tiles, cap, K, tx, cfg.tile_w_px, cfg.tile_h_px,
+        last.data_ptr(), visit.data_ptr(), n_tiles, cap, K, tx, cfg.tile_w_px, cfg.tile_h_px,
         int(cfg.exact_stop), _build.stream_handle(dev),
     )
     _build.check(err, "blend_forward")
-    return out, chunk_t, last
+    return out, chunk_t, last, visit
 
 
 def blend_backward_plain(
@@ -488,27 +500,32 @@ def blend_backward(
     counts: torch.Tensor,  # [T] int32
     chunk_t: torch.Tensor,  # [T, n_chunks + 1, px] from K3
     last: torch.Tensor,  # [T, px] from K3
+    visit: torch.Tensor,  # [T, n_chunks, px / 32, ceil(K / 32)] from K3
     g_out: torch.Tensor,  # [T, 8, px] cotangent of K3's out
     cam: Camera,
     cfg: RasterConfig,
 ) -> torch.Tensor:
     """K6: the per-tile backward -> ``grads [T, 16, cap]`` (rows d_mu, d_mv,
-    d_ca, d_cb, d_cc, d_op, d_r, d_g, d_b, d_z; rows 10-15 zero). ``chunk_t``
-    and ``last`` are K3's residuals (from :func:`blend_forward`); the
-    median row of ``g_out`` is ignored. CUDA tensors launch the kernel, CPU
-    tensors take :func:`blend_backward_plain` (which needs neither
-    residual)."""
+    d_ca, d_cb, d_cc, d_op, d_r, d_g, d_b, d_z; rows 10-15 zero).
+    ``chunk_t, last, visit`` are K3's residuals, in the order
+    :func:`blend_forward` returns them; the median row of ``g_out`` is
+    ignored. The kernel writes every element of ``grads``. CUDA tensors
+    launch the kernel, CPU tensors take :func:`blend_backward_plain` (which
+    needs none of the residuals)."""
     if not packed.is_cuda:
         return blend_backward_plain(packed, counts, g_out, cam, cfg)
     n_tiles, tx, cap, K, px, dev = _tile_args(packed, counts, cam, cfg)
-    _build.check_tensor(chunk_t, "chunk_t", torch.float32, (n_tiles, cap // K + 1, px), dev)
+    n_chunks = cap // K
+    _build.check_tensor(chunk_t, "chunk_t", torch.float32, (n_tiles, n_chunks + 1, px), dev)
     _build.check_tensor(last, "last", torch.int32, (n_tiles, px), dev)
+    _build.check_tensor(visit, "visit", torch.int32, (n_tiles, n_chunks, px // 32, _words(K)),
+                        dev)
     _build.check_tensor(g_out, "g_out", torch.float32, (n_tiles, 8, px), dev)
-    grads = torch.zeros((n_tiles, N_ATTR, cap), dtype=torch.float32, device=dev)
+    grads = torch.empty((n_tiles, N_ATTR, cap), dtype=torch.float32, device=dev)
     lib = _build.library()
     _build.count_launch("blend_backward")
     err = lib.gsorb_blend_backward(
-        packed.data_ptr(), counts.data_ptr(), chunk_t.data_ptr(), last.data_ptr(),
+        packed.data_ptr(), chunk_t.data_ptr(), last.data_ptr(), visit.data_ptr(),
         g_out.data_ptr(), grads.data_ptr(), n_tiles, cap, K, tx, cfg.tile_w_px,
         cfg.tile_h_px, _build.stream_handle(dev),
     )
@@ -521,16 +538,16 @@ class _Blend(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, packed, counts, cam, cfg):
-        out, chunk_t, last = blend_forward(packed, counts, cam, cfg)
-        ctx.save_for_backward(packed, counts, chunk_t, last)
+        out, chunk_t, last, visit = blend_forward(packed, counts, cam, cfg)
+        ctx.save_for_backward(packed, counts, chunk_t, last, visit)
         ctx.cam, ctx.cfg = cam, cfg
         return out
 
     @staticmethod
     def backward(ctx, g_out):
-        packed, counts, chunk_t, last = ctx.saved_tensors
-        grads = blend_backward(packed, counts, chunk_t, last, g_out.contiguous(), ctx.cam,
-                               ctx.cfg)
+        packed, counts, chunk_t, last, visit = ctx.saved_tensors
+        grads = blend_backward(packed, counts, chunk_t, last, visit, g_out.contiguous(),
+                               ctx.cam, ctx.cfg)
         return grads, None, None, None
 
 

@@ -42,6 +42,7 @@ from gsorb_slam_tpu_torch.raster.blend_kernels import (
     PackAux,
     _check_tile_shape,
     _RowsGatherSorted,
+    _words,
     attr_cols,
     blend_backward_plain,
     blend_tiles,
@@ -227,11 +228,6 @@ def footprint_keep_plain(
 # ---------------------------------------------------------------------------
 # The kernels
 # ---------------------------------------------------------------------------
-
-
-def _words(K: int) -> int:
-    """Visit words per warp and chunk: one per 32 slots."""
-    return -(-K // 32)
 
 
 def _flat_args(packed: torch.Tensor, cbins: ChunkBins, cam: Camera, cfg: RasterConfig):

@@ -109,7 +109,8 @@ def test_blend_backward_plain_matches_jax_vjp(exact):
                                    out_t)
     grads = blend_backward_plain(packed, counts, g_out, cam, cfg)
     # On CPU tensors the wrapper takes the plain version.
-    assert torch.equal(blend_backward(packed, counts, None, None, g_out, cam, cfg), grads)
+    assert torch.equal(blend_backward(packed, counts, None, None, None, g_out, cam, cfg),
+                       grads)
 
     out, vjp = jax.vjp(lambda p: jblend_and_untile(p, jbins.counts, jc, jcfg, BG, True), jpacked)
     (d_j,) = vjp(JRenderOutput(

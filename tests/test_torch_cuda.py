@@ -98,6 +98,8 @@ def _scene(dev, n=3000):
 
 
 def test_k3_matches_plain(dev):
+    """K3 against its plain version under both stop rules: rows and chunk_t
+    within 2e-3, the last applied slots and the visit words exactly."""
     params = _scene(dev)
     prep = preprocess(*params, torch.eye(4, device=dev), CAM)
     bins = bin_gaussians(prep, CAM, CFG)
@@ -105,11 +107,13 @@ def test_k3_matches_plain(dev):
     for exact in (False, True):
         cfg = dataclasses.replace(CFG, exact_stop=exact)
         n0 = _build.launches["blend_forward"]
-        out_k, ct_k, _ = blend_forward(packed, bins.counts, CAM, cfg)
+        out_k, ct_k, last_k, visit_k = blend_forward(packed, bins.counts, CAM, cfg)
         assert _build.launches["blend_forward"] == n0 + 1
-        out_p, ct_p, _ = blend_forward_plain(packed, bins.counts, CAM, cfg)
+        out_p, ct_p, last_p, visit_p = blend_forward_plain(packed, bins.counts, CAM, cfg)
         torch.testing.assert_close(out_k, out_p, atol=2e-3, rtol=0)
         torch.testing.assert_close(ct_k, ct_p, atol=2e-3, rtol=0)
+        assert torch.equal(last_k, last_p)
+        assert torch.equal(visit_k, visit_p) and bool(visit_k.any())
 
 
 def test_k2_and_k1_match_plain(dev):
@@ -333,18 +337,19 @@ def test_k6_matches_plain(dev, exact):
     prep = preprocess(*params, torch.eye(4, device=dev), CAM)
     bins = bin_gaussians(prep, CAM, cfg)
     packed = pack_instances(prep, bins)
-    out, chunk_t, last = blend_forward(packed, bins.counts, CAM, cfg)
-    _, _, last_p = blend_forward_plain(packed, bins.counts, CAM, cfg)
+    out, chunk_t, last, visit = blend_forward(packed, bins.counts, CAM, cfg)
+    _, _, last_p, _ = blend_forward_plain(packed, bins.counts, CAM, cfg)
     assert float((last != last_p).float().mean()) < 1e-3
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(dev)
     g[:, 5] = g[:, 7] = 0.0
     g, _ = tile_cotangent_without_gate_edges(packed, g, CAM, cfg)
     n0 = _build.launches["blend_backward"]
-    d_k = blend_backward(packed, bins.counts, chunk_t, last, g, CAM, cfg)
+    d_k = blend_backward(packed, bins.counts, chunk_t, last, visit, g, CAM, cfg)
     assert _build.launches["blend_backward"] == n0 + 1
     d_p = blend_backward_plain(packed, bins.counts, g, CAM, cfg)
     torch.testing.assert_close(d_k, d_p, atol=8e-4, rtol=2e-3)
-    assert torch.equal(blend_backward(packed, bins.counts, chunk_t, last, g, CAM, cfg), d_k)
+    assert torch.equal(blend_backward(packed, bins.counts, chunk_t, last, visit, g, CAM, cfg),
+                       d_k)
 
 
 def test_render_differentiates_through_k6(dev):
@@ -521,6 +526,92 @@ def test_k4_k5_visit_words_match_plain(dev, exact):
     assert bool(d_k[4, :10, 37].abs().sum() > 0)  # the single lane's slot
     assert torch.equal(blend_flat_backward(packed, cbins, out, chunk_t, last, visit, g, cam,
                                            cfg), d_k)
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_k3_k6_visit_words_match_plain(dev, exact):
+    """K3 and K6 on the word edge cases, with opaque splats past the counts
+    of the straddle and single tiles (the count bounds the blend): K3's rows
+    within 2e-3 of its plain version, its last applied slots and visit words
+    exactly; K6 within 8e-4 + 2e-3 |p| of its plain version under a seeded
+    random cotangent (gate-edge pixels left out). Each output lands on a
+    block poisoned just before the launch (NaN, or a value the kernel never
+    writes), its address checked: nothing is zero-filled first, and K6's
+    chunks no pixel reached, slots past the counts and rows 10-15 are
+    exactly 0; two launches of
+    each bit for bit. Then both on the pack padded with dead slots to
+    capacity 2048: K3's rows, last slots and first chunks' words those of
+    capacity 512, the new chunks' words 0; K6's gradients those of capacity
+    512 in its slots and 0 past them."""
+    cam = Camera(fx=30.0, fy=30.0, cx=16.0, cy=16.0, width=32, height=32)
+    cfg = RasterConfig(tile=16, tile_capacity=WORD_CAP, chunk=WORD_K, exact_stop=exact)
+    packed, counts = _word_pack(dev, ("full", "straddle", "single", "empty"), range(4), 16)
+    for t, s in ((1, 400), (2, 130), (3, 5)):  # wide opaque splats past the count
+        packed[t, 0:6, s] = torch.tensor([16.0 * (t % 2) + 7.5, 16.0 * (t // 2) + 7.5, 0.01, 0.0,
+                                          0.01, 0.9])
+        packed[t, 6:11, s] = 1.0
+    k = torch.arange(WORD_CAP, device=dev)
+    past = k[None, :] >= counts[:, None].long()
+    n_chunks = WORD_CAP // WORD_K
+
+    def forward(pk):
+        # Poison one block for each output, in the wrapper's order (out,
+        # chunk_t, last, visit), with values K3 never writes, and free them
+        # in reverse: each output must land on its poisoned block, so every
+        # element checked below is one that K3 wrote.
+        n_c = pk.shape[2] // WORD_K
+        poison = [torch.full((4, 8, 256), float("nan"), device=dev),
+                  torch.full((4, n_c + 1, 256), float("nan"), device=dev),
+                  torch.full((4, 256), -2, dtype=torch.int32, device=dev),
+                  torch.full((4, n_c, 8, WORD_K // 32), -1, dtype=torch.int32, device=dev)]
+        ptrs = [x.data_ptr() for x in poison]
+        while poison:
+            poison.pop()
+        res = blend_forward(pk, counts, cam, cfg)
+        assert [x.data_ptr() for x in res] == ptrs
+        return res
+
+    n0 = _build.launches["blend_forward"]
+    out, chunk_t, last, visit = forward(packed)
+    assert _build.launches["blend_forward"] == n0 + 1
+    out_p, chunk_t_p, last_p, visit_p = blend_forward_plain(packed, counts, cam, cfg)
+    torch.testing.assert_close(out, out_p, atol=2e-3, rtol=0)
+    torch.testing.assert_close(chunk_t, chunk_t_p, atol=2e-3, rtol=0)
+    assert torch.equal(last, last_p) and torch.equal(visit, visit_p)
+    assert bool(visit[0, 1].any()) and not visit[3].any()
+    assert all(torch.equal(a, b) for a, b in zip(forward(packed), (out, chunk_t, last, visit)))
+
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(6)).to(dev)
+    g[:, 5] = g[:, 7] = 0.0
+    g, _ = tile_cotangent_without_gate_edges(packed, g, cam, cfg)
+
+    def backward(pk, fwd):
+        poison = torch.empty((4, 16, pk.shape[2]), device=dev).fill_(float("nan"))
+        ptr = poison.data_ptr()
+        del poison  # K6's block next
+        res = blend_backward(pk, counts, *fwd[1:], g, cam, cfg)
+        assert res.data_ptr() == ptr
+        return res
+
+    n0 = _build.launches["blend_backward"]
+    d_k = backward(packed, (out, chunk_t, last, visit))
+    assert _build.launches["blend_backward"] == n0 + 1
+    d_p = blend_backward_plain(packed, counts, g, cam, cfg)
+    torch.testing.assert_close(d_k, d_p, atol=8e-4, rtol=2e-3)
+    assert not d_k[:, 10:].any() and not d_k.transpose(1, 2)[past].any()
+    assert not d_k[2, :, WORD_K:].any() and not d_k[3].any()  # chunks no pixel reached
+    _check_words_reached(d_k, counts)
+    assert torch.equal(backward(packed, (out, chunk_t, last, visit)), d_k)
+
+    cap = 2048
+    padded = torch.nn.functional.pad(packed, (0, cap - WORD_CAP)).contiguous()
+    fwd_r = forward(padded)
+    assert torch.equal(fwd_r[0], out) and torch.equal(fwd_r[2], last)
+    assert torch.equal(fwd_r[1][:, :n_chunks], chunk_t[:, :n_chunks])
+    assert torch.equal(fwd_r[1][:, -1], chunk_t[:, -1])
+    assert torch.equal(fwd_r[3][:, :n_chunks], visit) and not fwd_r[3][:, n_chunks:].any()
+    d_r = backward(padded, fwd_r)
+    assert torch.equal(d_r[..., :WORD_CAP], d_k) and not d_r[..., WORD_CAP:].any()
 
 
 @pytest.mark.parametrize("kind", ["K1", "K7", "K8", "K9"])

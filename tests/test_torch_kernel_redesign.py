@@ -11,12 +11,13 @@ package on the CPU.
   capacity that is not a multiple of 256, and one tile. At ``T = 0`` the
   Pallas kernel's block cannot slice an empty pack, so the reference there
   is the VJP of the JAX package's XLA ``preprocess_instances`` (zeros).
-- K4: ``footprint_keep_plain`` keeps every slot a warp applies (the visit
-  words of ``blend_flat_forward_plain``) on a small mapping pack under both
-  stop rules, and on a ``hypothesis`` search of conics and opacities placed
-  so that one pixel's alpha lies within a few ulps of the 1/255 gate; the
-  plain blend's count of kept (lane, slot) pairs lies between its visited
-  and evaluated ones.
+- K4 and K3: ``footprint_keep_plain`` keeps every slot a warp applies (the
+  visit words of ``blend_flat_forward_plain``) on a small mapping pack under
+  both stop rules, ``footprint_keep`` those of ``blend_forward_plain`` on
+  the same scene's per-tile pack, and on a ``hypothesis`` search of conics
+  and opacities placed so that one pixel's alpha lies within a few ulps of
+  the 1/255 gate; the plain blend's count of kept (lane, slot) pairs lies
+  between its visited and evaluated ones.
 """
 
 import dataclasses
@@ -37,7 +38,13 @@ from gsorb_slam_tpu.raster.instances import preprocess_instances as jpreprocess_
 from gsorb_slam_tpu.raster.preprocess_pallas import preprocess_instances_pallas
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.raster.binning import ChunkBins, TileBins, chunk_layout
-from gsorb_slam_tpu_torch.raster.blend_kernels import footprint_extents
+from gsorb_slam_tpu_torch.raster.blend_kernels import (
+    blend_forward_plain,
+    footprint_extents,
+    footprint_keep,
+    pack_instances,
+    tile_pixels,
+)
 from gsorb_slam_tpu_torch.raster.flat_kernels import (
     blend_flat_forward_plain,
     footprint_keep_plain,
@@ -232,10 +239,14 @@ def _bits(words):
     return bits.reshape(*words.shape[:-1], -1).bool()
 
 
-@pytest.mark.parametrize("exact", [False, True])
-def test_footprint_keeps_every_applied_slot(rng, exact):
-    """On a small mapping pack the cull keeps every slot a warp applies,
-    and drops most of the rest."""
+@pytest.mark.parametrize("exact,layout", [
+    pytest.param(False, "flat", id="False"), pytest.param(True, "flat", id="True"),
+    pytest.param(False, "tile", id="tile-False"), pytest.param(True, "tile", id="tile-True"),
+])
+def test_footprint_keeps_every_applied_slot(rng, exact, layout):
+    """On a small mapping pack (K4's flat layout) and on the same scene's
+    per-tile pack (K3's, whose tiles' counts end inside a chunk) the cull
+    keeps every slot a warp applies, and drops most of the rest."""
     scene = random_cloud_scene(rng, n=300, capacity=384)
     jc = JCamera(**CAM_KW)
     prep = jpreprocess(*(scene[k] for k in KEYS), jnp.eye(4), jc)
@@ -243,6 +254,9 @@ def test_footprint_keeps_every_applied_slot(rng, exact):
     tb = TileBins(indices=_t(bins.indices), counts=_t(bins.counts), n_dropped=_t(bins.n_dropped))
     pp = Preprocessed(**{f.name: _t(getattr(prep, f.name))
                          for f in dataclasses.fields(Preprocessed)})
+    if layout == "tile":
+        _check_tile_cull_keeps_applied(pp, tb, exact)
+        return
     cb = chunk_layout(tb, N_TILES, 64, 64)
     packed = pack_instances_flat(pp, cb)
     cfg, cam = RasterConfig(**FLAT_CFG, exact_stop=exact), Camera(**CAM_KW)
@@ -257,6 +271,31 @@ def test_footprint_keeps_every_applied_slot(rng, exact):
     # The warps' kept pairs lie between the visited and the evaluated ones.
     pairs = {}
     blend_flat_forward_plain(packed, cb, cam, cfg, pairs=pairs)
+    assert pairs["warp_visits"] <= pairs["warp_kept"] < pairs["evaluated"]
+
+
+def _check_tile_cull_keeps_applied(pp, tb, exact):
+    """K3's side of test_footprint_keeps_every_applied_slot: the per-tile
+    pack (capacity 256, chunk 64), the cull of each warp over every slot
+    against the visit words of ``blend_forward_plain``."""
+    cfg, cam = RasterConfig(**FLAT_CFG, exact_stop=exact), Camera(**CAM_KW)
+    packed = pack_instances(pp, tb)
+    counts = tb.counts
+    visit = blend_forward_plain(packed, counts, cam, cfg)[3]  # [T, n_chunks, W, kw]
+    pu, pv = tile_pixels(torch.arange(N_TILES), 4, 16, 16)
+    keep = footprint_keep(packed, pu, pv)  # [T, W, cap]
+    applied = _bits(visit).transpose(1, 2).reshape(keep.shape)
+    assert int(applied.sum()) > 0
+    assert not bool((applied & ~keep).any())
+    # A tile whose count ends inside a chunk applies a slot of that chunk.
+    slot = torch.arange(keep.shape[2])
+    last_chunk = (slot[None, :] // 64 == (counts[:, None] - 1) // 64) & (counts[:, None] % 64 > 0)
+    assert bool((applied & last_chunk[:, None, :]).any())
+    live = (slot[None, :] < counts[:, None])[:, None, :].expand_as(keep)
+    assert not bool((applied & ~live).any())
+    assert int((keep & live).sum()) < 0.5 * int(live.sum())  # the cull drops most pairs
+    pairs = {}
+    blend_forward_plain(packed, counts, cam, cfg, pairs=pairs)
     assert pairs["warp_visits"] <= pairs["warp_kept"] < pairs["evaluated"]
 
 

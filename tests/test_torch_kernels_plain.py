@@ -161,11 +161,11 @@ def test_k3_plain_matches_pallas(rng, exact):
         np.testing.assert_allclose(getattr(to, k).numpy(), np.asarray(getattr(jo, k)),
                                    atol=tol, err_msg=k)
     # chunk_t: incoming T per chunk (0 once done), final T last.
-    out, chunk_t, _ = blend_forward_plain(packed, _t(bins.counts), cam, tcfg)
+    out, chunk_t, _, _ = blend_forward_plain(packed, _t(bins.counts), cam, tcfg)
     assert chunk_t.shape == (12, 256 // 64 + 1, 256)
     np.testing.assert_array_equal(chunk_t[:, -1].numpy(), out[:, 6].numpy())
     assert bool((chunk_t[:, 0] == 1.0).all())
-    w_out, w_ct, _ = blend_forward(packed, _t(bins.counts), cam, tcfg)
+    w_out, w_ct, _, _ = blend_forward(packed, _t(bins.counts), cam, tcfg)
     assert torch.equal(w_out, out) and torch.equal(w_ct, chunk_t)
 
 
