@@ -108,7 +108,33 @@ Phases (any failed check makes the exit code non-zero):
     ``profile_map_iter``, ``profile_raster``, ``profile_fused``,
     ``profile_paired_parts``, ``profile_gather`` (their defaults) and
     ``profile_mapping_quality`` (3 QVGA frames per ablation, the four
-    ablations); each must return finite numbers, and each prints its lines.
+    ablations); each must return finite numbers, and each prints its lines;
+19. the disk path on phase 12's sequence: its first 8 frames written in the
+    TUM layout (``export_tum_format``: 8-bit rgb PNG, 16-bit depth PNG,
+    jittered timestamps, ``groundtruth.txt``) and read back through
+    ``open_dataset("tum", ...)``: 8 pairs associated, rgb equal to its
+    8-bit export (within one quantum of the generated frame), depth within
+    1.5 / 5000 m where valid, poses within 1e-5, the image codec (cv2, else
+    Pillow) and its read time per frame;
+    ``apps.run_rgbd.main`` over the directory with TUM1 as a ``.json``
+    file (``--type tum --max-frames 8 --eval-stride 1``): exit code 0, ATE
+    < 2 cm and PSNR >= 18 dB from its ``result.txt``, K1 = K2f = K2b = the
+    tracking iterations, K4 = K5 = the mapping iterations, K3 = 15, the
+    trajectory and the PLY written; ``apps.eval_ate`` on the two trajectory
+    files within 1e-5 m of ``result.txt``'s ATE; ``apps.replay`` of the PLY
+    along the trajectory (``--stride 1``): PSNR >= 18 dB, K3 = 8; 2 frames
+    round-tripped through the Replica and ScanNet layouts (JPEG color); ``apps.run_benchmark.main`` once with
+    ``--frontend render --no-distortion --frames 4`` (finite results, no
+    instance dropped at the oracle capacity);
+20. the render path's leftovers on phase 12's first 3 frames: a System with
+    ``initScalarMethod`` 0 with frame 1 inside ``start_trace`` /
+    ``stop_trace`` (the trace names K1's and K4's kernels), then
+    ``reset()`` (frame_id 0, no keyframes, an empty map and trajectory,
+    velocity I) and the 3 frames again (finite poses, ATE < 2 cm, launch
+    counts); a System with ``initScalarMethod`` 1 (ATE < 2 cm); the
+    Morton-window 3-NN on the card against the CPU on frame 0's candidates
+    (1e-6 relative, equal Morton codes); the exact 3-NN's host time per
+    densify.
 It prints a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -144,6 +170,9 @@ SYS_FRAMES = 10
 SYS_RERUN_FRAMES = 4
 SYS_KERNEL_FRAMES = 5
 SYS_SEQ_FRAMES = 100
+# Phase 19: the frames written to disk, and run_benchmark's sequence length.
+DISK_FRAMES = 8
+BENCH_FRAMES = 4
 # configs/tum1.yaml (the reference's Examples/RGB-D/tum/TUM1.yaml) as a dict.
 TUM1 = {
     "Dataset": {"name": "tum_desk1", "type": "tum",
@@ -721,7 +750,7 @@ def phase_system(torch, checks, dev) -> dict:
     del system, system2, snap
 
     # ---- 13. the exact-stop and paired-rect configurations ----
-    out = {"e2e": e2e, "launches": launches}
+    out = {"e2e": e2e, "launches": launches, "frames": frames}
     for label, kw, kname in (("exact_stop", dict(exact_stop=True), "fused_track_exact"),
                              ("paired", dict(paired=True), "paired_track")):
         torch.cuda.synchronize()
@@ -744,6 +773,293 @@ def phase_system(torch, checks, dev) -> dict:
         out[kname] = lm[kname]
         del sys_m
     return out
+
+
+class _RecordSystems:
+    """Within the block, every System that ``slam.system.System`` makes (an
+    app's, inside its ``main``) is appended to ``made``."""
+
+    def __init__(self):
+        self.made = []
+
+    def __enter__(self):
+        from gsorb_slam_tpu_torch.slam import system as SM
+
+        made, base = self.made, SM.System
+
+        class Recorded(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        self._base = base
+        SM.System = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        from gsorb_slam_tpu_torch.slam import system as SM
+
+        SM.System = self._base
+
+
+def _quiet_call(fn, *args):
+    """``fn(*args)`` with its standard output captured; returns (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    return res, buf.getvalue()
+
+
+def phase_disk(torch, checks, dev, frames, tmp: str) -> dict:
+    """Phase 19: the disk path. Phase 12's first DISK_FRAMES frames exported
+    in the TUM layout and read back; ``run_rgbd`` over the directory on the
+    card (TUM1 as a ``.json`` file), ``eval_ate`` on its trajectory,
+    ``replay`` of its PLY, 2 frames through the JPEG layouts, and
+    ``run_benchmark --frontend render --no-distortion``."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.apps import eval_ate, replay, run_benchmark, run_rgbd
+    from gsorb_slam_tpu_torch.slam import dataset as D
+
+    n = DISK_FRAMES
+    codec = D.image_codec_name()
+    print(f"# image codec on this machine: {codec or 'none (neither cv2 nor Pillow imports)'}",
+          flush=True)
+    seq = os.path.join(tmp, "tum")
+    t0 = time.perf_counter()
+    D.export_tum_format(frames[:n], seq)
+    export_s = (time.perf_counter() - t0) / n
+    ds = D.open_dataset("tum", seq, 5000.0)
+    checks.record(f"disk: {n} rgb / depth pairs associated", len(ds), n, ok=len(ds) == n)
+    t0 = time.perf_counter()
+    read = [ds[i] for i in range(len(ds))]
+    read_s = (time.perf_counter() - t0) / max(len(read), 1)
+    # The exporter truncates to 8 bits (as the JAX package's does, so the
+    # files are the same): the read-back rgb is that quantization exactly,
+    # within one quantum of the generated frame.
+    q_err = max(float(np.abs(r.rgb - np.floor(np.clip(f.rgb * 255.0, 0, 255)) / 255.0).max())
+                for r, f in zip(read, frames))
+    rgb_err = max(float(np.abs(r.rgb - f.rgb).max()) for r, f in zip(read, frames))
+    d_err = max(float(np.abs(r.depth - f.depth)[f.depth > 0].max()) for r, f in zip(read, frames))
+    d_zero = all(bool((r.depth[f.depth == 0] == 0).all()) for r, f in zip(read, frames))
+    pose_err = max(float(np.abs(r.gt_T_cw - f.gt_T_cw).max()) for r, f in zip(read, frames))
+    checks.record("disk: rgb read back equal to its 8-bit export", q_err, 0.0)
+    checks.record("disk: rgb read back against the generated frame", rgb_err, 1 / 255 + 1e-6)
+    checks.record("disk: depth read back where valid (m)", d_err, 1.5 / 5000,
+                  ok=d_err <= 1.5 / 5000 and d_zero)
+    checks.record("disk: ground-truth poses read back", pose_err, 1e-5)
+    print(f"# phase 19: TUM layout of {n} VGA frames: export {export_s * 1e3:.1f} ms per "
+          f"frame, read ({codec}, PNG files {codec} wrote) {read_s * 1e3:.1f} ms per frame",
+          flush=True)
+
+    cfg_path = os.path.join(tmp, "tum1.json")
+    with open(cfg_path, "w") as f:
+        json.dump({**TUM1, "Dataset": {**TUM1["Dataset"], "path": seq}}, f)
+    out = os.path.join(tmp, "run")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with _RecordSystems() as rec:
+        rc, _ = _quiet_call(run_rgbd.main, ["--config", cfg_path, "--type", "tum", "--dataset",
+                                            seq, "--max-frames", str(n), "--eval-stride", "1",
+                                            "--out", out])
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    checks.record("disk: run_rgbd exit code", rc, 0, ok=rc == 0)
+    (system,) = rec.made
+    with open(os.path.join(out, "result.txt")) as f:
+        result = json.loads(f.read().splitlines()[-1])
+    print(f"# run_rgbd on the disk sequence: {json.dumps(result)}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    checks.record("disk: run_rgbd ATE RMSE (m)", result["ate_rmse"], 0.02)
+    checks.record("disk: run_rgbd PSNR (dB, at least)", result["psnr"], 18.0,
+                  ok=result["psnr"] >= 18.0)
+    mcfg = system.cfg.mapping
+    n_track = sum(r.track_iters for r in system.trajectory[1:])
+    n_map = mcfg.init_iters + mcfg.num_iters * (n - 1)
+    for name, want in (("fused_track_fast", n_track), ("preprocess_fwd", n_track),
+                       ("preprocess_bwd", n_track), ("blend_flat_fwd", n_map),
+                       ("blend_flat_bwd", n_map), ("blend_forward", 2 * n - 1)):
+        checks.record(f"disk: run_rgbd {name} launches == {want}", launches[name], want,
+                      ok=launches[name] == want and want > 0)
+    written = all(os.path.getsize(os.path.join(out, name)) > 0 for name in (
+        "CameraTrajectory_TUM.txt", "CameraTrajectory.txt", "GaussianModel.ply"))
+    checks.record("disk: trajectory and PLY written", 0.0, 0.0, ok=written)
+    e2e = {k: result[k] for k in ("median_frame_s", "mean_frame_s", "avg_tracking_s",
+                                  "avg_mapping_s", "compile_s", "ate_rmse", "psnr",
+                                  "depth_l1")}
+    e2e["read_ms_per_frame"] = read_s * 1e3
+    print(f"# disk run end to end (frame 0 is the seed and {mcfg.init_iters} warm-up "
+          f"iterations): {json.dumps(e2e)}", flush=True)
+
+    est = os.path.join(out, "CameraTrajectory_TUM.txt")
+    rc, text = _quiet_call(eval_ate.main, [os.path.join(seq, "groundtruth.txt"), est])
+    print(f"# eval_ate: {' | '.join(text.strip().splitlines())}", flush=True)
+    rmse = float(text.split("rmse ")[1].split()[0]) if rc == 0 else math.inf
+    checks.record("disk: eval_ate RMSE against result.txt's ATE (m)",
+                  abs(rmse - result["ate_rmse"]), 1e-5)
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    rc, text = _quiet_call(replay.main, ["--ply", os.path.join(out, "GaussianModel.ply"),
+                                         "--traj", est, "--config", cfg_path, "--dataset", seq,
+                                         "--type", "tum", "--stride", "1"])
+    torch.cuda.synchronize()
+    rep = json.loads(text.strip().splitlines()[-1])
+    print(f"# replay: {json.dumps(rep)}; launches {json.dumps(_build.launches)}", flush=True)
+    checks.record("disk: replay PSNR (dB, at least)", rep["psnr"], 18.0,
+                  ok=rc == 0 and rep["psnr"] >= 18.0 and rep["frames"] == n)
+    checks.record(f"disk: replay blend_forward launches == {n}", _build.launches["blend_forward"],
+                  n, ok=_build.launches["blend_forward"] == n)
+
+    for layout in ("replica", "scannet"):
+        root = os.path.join(tmp, layout)
+        getattr(D, f"export_{layout}_format")(frames[:2], root)
+        back = D.open_dataset(layout, root, 5000.0)
+        tol = 1.5 / 6553.5 if layout == "replica" else 1.5e-3
+        ok = len(back) == 2
+        for i in range(2):
+            fr, src = back[i], frames[i]
+            ok &= float(np.abs(fr.rgb - src.rgb).mean()) < 6.0 / 255.0
+            ok &= float(np.abs(fr.depth - src.depth)[src.depth > 0].max()) < tol
+            ok &= float(np.abs(fr.gt_T_cw - src.gt_T_cw).max()) < 1e-5
+        checks.record(f"disk: 2 frames round-trip through the {layout} layout", 0.0, 0.0,
+                      ok=ok)
+
+    bench_out = os.path.join(tmp, "bench")
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    bench, _ = _quiet_call(run_benchmark.main, [
+        "--frontend", "render", "--no-distortion", "--frames", str(BENCH_FRAMES),
+        "--cache", os.path.join(tmp, "cache"), "--out", bench_out])
+    torch.cuda.synchronize()
+    print(f"# run_benchmark --frontend render --no-distortion --frames {BENCH_FRAMES}: "
+          f"{json.dumps(bench)}; launches {json.dumps(_build.launches)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # Its sequence spans the 100-frame sweep in BENCH_FRAMES frames, so the
+    # frames lie far apart: the run is held to finite results, not to an ATE.
+    checks.record("disk: run_benchmark ran on the card with finite results", 0.0, 0.0,
+                  ok=bench["backend"] == "cuda" and bench["frames"] == BENCH_FRAMES
+                  and math.isfinite(bench["ate_rmse_m"]) and math.isfinite(bench["psnr_db"])
+                  and bench["trunc_oracle_dropped"] == 0)
+    return {"e2e": e2e, "launches": launches, "replay": rep, "codec": codec, "bench": bench}
+
+
+def phase_scale_inits(torch, checks, dev, frames, tmp: str) -> dict:
+    """Phase 20: the render path's leftovers on phase 12's first 3 frames.
+    System A (``initScalarMethod`` 0) with frame 1 traced, then ``reset()``
+    and the 3 frames again; System B (``initScalarMethod`` 1); the
+    Morton-window 3-NN on the card against the CPU on frame 0's candidates;
+    the exact 3-NN's host time per densify."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.core.camera import Camera, backproject, pixel_grid
+    from gsorb_slam_tpu_torch.eval.ate import ate_rmse
+    from gsorb_slam_tpu_torch.interop import system_config_from_dict
+    from gsorb_slam_tpu_torch.ops import knn
+    from gsorb_slam_tpu_torch.slam.system import System
+
+    seq = frames[:3]
+    knn_s = []
+    exact = knn.knn3_mean_sq_dist_exact
+
+    def timed_exact(pts, valid):
+        t0 = time.perf_counter()
+        out = exact(pts, valid)
+        knn_s.append(time.perf_counter() - t0)
+        return out
+
+    def system_for(method):
+        cfg = system_config_from_dict(
+            {**TUM1, "Mapping": {**TUM1["Mapping"], "initScalarMethod": method}})
+        return System(cfg, raster=System.default_raster_config(cfg.camera.width), seed=0,
+                      device=dev)
+
+    def ate(system):
+        return ate_rmse([r.T_cw for r in system.trajectory], [f.gt_T_cw for f in seq])
+
+    knn.knn3_mean_sq_dist_exact = timed_exact
+    try:
+        sys_a = system_for(0)
+        sys_a.track_rgbd(seq[0].rgb, seq[0].depth, seq[0].timestamp)
+        sys_a.start_trace(os.path.join(tmp, "trace"))
+        sys_a.track_rgbd(seq[1].rgb, seq[1].depth, seq[1].timestamp)
+        trace = sys_a.stop_trace()
+        sys_a.track_rgbd(seq[2].rgb, seq[2].depth, seq[2].timestamp)
+        with open(trace) as f:
+            text = f.read()
+        names = ("fused_track_kernel", "blend_flat_fwd_kernel")
+        print(f"# phase 20: trace of System A's frame 1: {os.path.getsize(trace)} bytes; "
+              + ", ".join(f"{k} {text.count(k)} times" for k in names), flush=True)
+        checks.record("scale inits: the trace names K1's and K4's kernels", 0.0, 0.0,
+                      ok=all(k in text for k in names))
+        del text
+        ate_first = ate(sys_a)
+        sys_a.reset()
+        checks.record("scale inits: reset() clears the session", 0.0, 0.0,
+                      ok=sys_a.frame_id == 0 and sys_a.keyframes == []
+                      and int(sys_a.gm.count) == 0 and sys_a.trajectory == []
+                      and np.array_equal(sys_a.velocity, np.eye(4, dtype=np.float32)))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        for fr in seq:
+            sys_a.track_rgbd(fr.rgb, fr.depth, fr.timestamp)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        poses = np.stack([r.T_cw for r in sys_a.trajectory])
+        checks.record("scale inits: method 0 poses after reset() finite", 0.0, 0.0,
+                      ok=bool(np.isfinite(poses).all()) and len(poses) == 3)
+        ate_a = ate(sys_a)
+        checks.record("scale inits: method 0 ATE RMSE after reset() (m)", ate_a, 0.02)
+        mcfg = sys_a.cfg.mapping
+        n_track = sum(r.track_iters for r in sys_a.trajectory[1:])
+        n_map = mcfg.init_iters + 2 * mcfg.num_iters
+        for name, want in (("fused_track_fast", n_track), ("preprocess_fwd", n_track),
+                           ("preprocess_bwd", n_track), ("blend_flat_fwd", n_map),
+                           ("blend_flat_bwd", n_map), ("blend_forward", 2)):
+            checks.record(f"scale inits: method 0 {name} launches == {want}", launches[name],
+                          want, ok=launches[name] == want and want > 0)
+        summ_a = sys_a.shutdown_summary()
+        del sys_a
+
+        sys_b = system_for(1)
+        for fr in seq:
+            sys_b.track_rgbd(fr.rgb, fr.depth, fr.timestamp)
+        ate_b = ate(sys_b)
+        checks.record("scale inits: method 1 ATE RMSE (m)", ate_b, 0.02)
+        summ_b = sys_b.shutdown_summary()
+        del sys_b
+    finally:
+        knn.knn3_mean_sq_dist_exact = exact
+    print(f"# scale inits: method 0 ATE {ate_first:.6f} m (first session), {ate_a:.6f} m "
+          f"(after reset), {summ_a['total_gaussians']} splats; method 1 ATE {ate_b:.6f} m, "
+          f"{summ_b['total_gaussians']} splats; launches after reset {json.dumps(launches)}",
+          flush=True)
+    print(f"# exact 3-NN on the host, per densify (s; {seq[0].depth.size} candidates each, "
+          f"3 sessions x 3 frames): {', '.join(f'{v:.4f}' for v in knn_s)}; median "
+          f"{float(np.median(knn_s)):.4f}", flush=True)
+
+    # The Morton-window version on frame 0's candidates, card against CPU.
+    cc = system_config_from_dict(TUM1).camera
+    cam = Camera(fx=cc.fx, fy=cc.fy, cx=cc.cx, cy=cc.cy, width=cc.width, height=cc.height)
+    depth = torch.as_tensor(seq[0].depth)
+    pts = backproject(cam, pixel_grid(cam, device="cpu"), depth).reshape(-1, 3).contiguous()
+    valid = (depth > 0).reshape(-1)
+    want = knn.knn3_mean_sq_dist(pts, valid)
+    p_d, v_d = pts.to(dev), valid.to(dev)
+    got = knn.knn3_mean_sq_dist(p_d, v_d)
+    torch.cuda.synchronize()
+    window_ms = time_ms(torch, lambda: knn.knn3_mean_sq_dist(p_d, v_d), 5)
+    w = want.numpy()
+    rel = float((np.abs(got.cpu().numpy() - w) / np.maximum(np.abs(w), 1e-30)).max())
+    codes_equal = torch.equal(knn.morton_codes(p_d, v_d).cpu(), knn.morton_codes(pts, valid))
+    print(f"# Morton-window 3-NN on {int(valid.sum())} of {len(valid)} candidates: "
+          f"{window_ms:.3f} ms on the card; Morton codes equal to the CPU's: {codes_equal}",
+          flush=True)
+    checks.record("scale inits: Morton-window 3-NN, card against CPU (relative)", rel, 1e-6,
+                  ok=rel <= 1e-6 and codes_equal)
+    return {"knn_exact_s": knn_s, "window_ms": window_ms, "ate": (ate_a, ate_b)}
 
 
 def phase_blend_backward(torch, checks, gm, packed, bins_r, cam, rcfg) -> dict:
@@ -1464,6 +1780,11 @@ def main() -> int:
 
     # ---- 18. the profilers ----
     phase_profilers(torch, checks)
+
+    # ---- 19-20. the disk path and the render path's leftovers ----
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_disk(torch, checks, dev, sysres["frames"], tmp)
+        phase_scale_inits(torch, checks, dev, sysres["frames"], tmp)
 
     with torch.no_grad():
         k1_ms = time_ms(torch, lambda: tracking_loss_grad(

@@ -12,6 +12,7 @@ frozen dataclass tree, loadable from the reference's YAML files
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Mapping, Optional
 
 
@@ -173,9 +174,14 @@ def _sub(root: Mapping[str, Any], name: str) -> Mapping[str, Any]:
 
 
 def load_config(path_or_dict: Any) -> SystemConfig:
-    """Load a :class:`SystemConfig` from a reference-format YAML file/dict."""
+    """Load a :class:`SystemConfig` from a reference-format dict, a YAML
+    file (needs PyYAML) or the same tree as a ``.json`` file (read with the
+    standard library, for machines without PyYAML)."""
     if isinstance(path_or_dict, Mapping):
         root = dict(path_or_dict)
+    elif str(path_or_dict).lower().endswith(".json"):
+        with open(path_or_dict) as f:
+            root = json.load(f) or {}
     else:
         try:  # only YAML files need PyYAML; dicts load without it
             import yaml

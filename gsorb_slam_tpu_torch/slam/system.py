@@ -191,6 +191,8 @@ class System:
         self.densify_added: list[int] = []  # per-frame splat add counts
         # (kept, dropped) instance counts per binning episode (device scalars).
         self._bin_stats: list[tuple[torch.Tensor, torch.Tensor]] = []
+        self._profiler: Optional[torch.profiler.profile] = None  # start_trace
+        self._trace_dir = ""
 
     # ------------------------------------------------------------ device ops
 
@@ -516,6 +518,33 @@ class System:
         )
         return T_cw
 
+    def reset(self) -> None:
+        """``System::Reset`` (``src/System.cc``, ``Tracking::Reset``) for the
+        render frontend: drop the map, the keyframes, the trajectory, the
+        motion model and the run's statistics. The keyframe pools are zeroed
+        in place (no new allocation). The config, camera, device, timings,
+        the built kernels, the process group (``use_mesh``) and the random
+        state survive, as in the JAX package (its key is not reset either):
+        the next ``track_rgbd`` starts a fresh session."""
+        self.gm = empty_map(self.cfg.mapping.max_gaussians, device=self.device)
+        self._kf_colors.zero_()
+        self._kf_depths.zero_()
+        self._kf_bins_idx.fill_(-1)
+        self._kf_bins_cnt.zero_()
+        self.keyframes = []
+        self.last_kf = None
+        self._kf_created = 0
+        self._last_compact_frame = -1
+        self._last_recycle_frame = -1
+        self.trajectory = []
+        self.frame_id = 0
+        self.last_kf_frame_id = -(10**9)
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.last_T_cw = np.eye(4, dtype=np.float32)
+        self.loop_events = []
+        self.densify_added = []
+        self._bin_stats = []
+
     # ------------------------------------------------------------ checkpoint
 
     def save_checkpoint(self, path: str) -> None:
@@ -613,6 +642,31 @@ class System:
     def render_view(self, T_cw: np.ndarray) -> RenderOutput:
         """Render any pose (the ``Render::Viwer`` hook, ``src/Render.cc:179-193``)."""
         return self._render(T_cw, self._bin(T_cw))
+
+    # --------------------------------------------------------- observability
+
+    def start_trace(self, log_dir: str) -> None:
+        """Begin a trace with ``torch.profiler`` (host ops, and the CUDA
+        kernels on the card): the structured upgrade of the reference's
+        chrono counters (``src/Render.cc:34-41``). :meth:`stop_trace` writes it."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._trace_dir = log_dir
+        self._profiler = torch.profiler.profile(activities=acts)
+        self._profiler.start()
+
+    def stop_trace(self) -> str:
+        """End the trace that :meth:`start_trace` began and write it into its
+        ``log_dir`` as a Chrome trace (chrome://tracing, Perfetto); returns
+        the file's path."""
+        prof, self._profiler = self._profiler, None
+        self._sync()
+        prof.stop()
+        os.makedirs(self._trace_dir, exist_ok=True)
+        path = os.path.join(self._trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        return path
 
     def shutdown_summary(self) -> dict:
         """The timing and statistics contract of ``SavePlyAndPrintTime``

@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from gsorb_slam_tpu_torch.core.config import MappingConfig, TrackingConfig
+from gsorb_slam_tpu_torch.ops import knn
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -102,19 +103,27 @@ def add_points(
 ) -> GaussianMap:
     """Densify: scatter valid candidate splats into dead slots.
 
-    New rows get quat=identity, logit-opacity=1, the SinglePixel scale and
-    zero Adam moments. Slot assignment recycles dead rows (holes below the
-    high-water mark fill first, then the virgin tail); only candidates
-    beyond the total dead-slot count are dropped. Returns a new map; the
-    input map's tensors are not modified.
+    New rows get quat=identity, logit-opacity=1, zero Adam moments and an
+    isotropic scale per ``init_scalar_method`` (``src/Gaussian.cc:50-95``):
+    0, the root of the exact 3-NN mean squared distance among the valid
+    candidates (at least 1e-7 squared); 1, the same clamped at 8x its mean
+    over the valid candidates; 2, the SinglePixel scale. The 3-NN search
+    runs on the host (:func:`~gsorb_slam_tpu_torch.ops.knn.knn3_mean_sq_dist_exact`)
+    and raises ValueError on candidates flat along an axis. Slot assignment recycles dead rows (holes below the high-water mark
+    fill first, then the virgin tail); only candidates beyond the total
+    dead-slot count are dropped. Returns a new map; the input map's tensors
+    are not modified.
     """
-    if init_scalar_method != 2:
-        raise NotImplementedError(
-            "only the SinglePixel scale init (init_scalar_method=2) is ported; "
-            "the 3-NN initializers come with the ORB frontend"
-        )
     valid = valid.to(torch.bool)
-    log_scale_1d = single_pixel_log_scale(z_cam, fx, fy)
+    if init_scalar_method == 2:
+        log_scale_1d = single_pixel_log_scale(z_cam, fx, fy)
+    else:
+        d = torch.sqrt(torch.clamp(knn.knn3_mean_sq_dist_exact(means, valid), min=1e-7))
+        if init_scalar_method == 1:  # DistanceMean: clamp at 8x the mean
+            mean_d = torch.where(valid, d, torch.zeros_like(d)).sum() / torch.clamp(
+                valid.sum(), min=1)
+            d = torch.minimum(d, 8.0 * mean_d)
+        log_scale_1d = torch.log(d)
 
     # Slot for the i-th valid candidate = index of the (i+1)-th dead row.
     dead_cum = torch.cumsum((~gm.active).to(torch.int32), 0, dtype=torch.int32)

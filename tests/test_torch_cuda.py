@@ -660,3 +660,23 @@ def test_tracking_kernels_at_capacity_2048(dev, kind):
     torch.testing.assert_close(img_r + dep_r, plain[0] + plain[1], rtol=1e-3, atol=0)
     assert torch.equal(run(torch.nn.functional.pad(packed, (0, cap - WORD_CAP)).contiguous())[2],
                        g_r)
+
+
+def test_knn3_window_on_the_card_matches_the_cpu(dev):
+    """The Morton-window 3-NN (``ops.knn``) on the card against the same
+    function on the CPU: equal Morton codes, mean squared distances within
+    1e-6 relative, on a depth frame's back-projected candidates."""
+    from gsorb_slam_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(0)
+    h, w = 96, 128
+    v, u = np.mgrid[0:h, 0:w].astype(np.float32)
+    z = 2.0 + 0.3 * np.sin(u / 20.0) + rng.normal(0, 0.002, (h, w)).astype(np.float32)
+    pts = np.stack([(u - 64) / 120 * z, (v - 48) / 120 * z, z], -1).reshape(-1, 3)
+    pts = np.concatenate([pts, pts[:500]]).astype(np.float32)  # duplicate codes
+    valid = rng.uniform(size=len(pts)) > 0.05
+    cpu = knn.knn3_mean_sq_dist(torch.as_tensor(pts), torch.as_tensor(valid))
+    p, m = torch.as_tensor(pts, device=dev), torch.as_tensor(valid, device=dev)
+    assert torch.equal(knn.morton_codes(p, m).cpu(),
+                       knn.morton_codes(torch.as_tensor(pts), torch.as_tensor(valid)))
+    torch.testing.assert_close(knn.knn3_mean_sq_dist(p, m).cpu(), cpu, rtol=1e-6, atol=0)

@@ -112,5 +112,5 @@ def test_run_rgbd_cpu(tmp_path, monkeypatch):
     result = json.loads((out / "result.txt").read_text().splitlines()[-1])
     assert result["n_frames"] == 3 and result["n_eval_frames"] == 3
     assert result["ate_rmse"] < 0.02 and result["psnr"] > 15.0
-    with pytest.raises(NotImplementedError):
-        run_rgbd.main(["--config", str(cfg), "--cpu", "--type", "tum", "--out", str(out)])
+    with pytest.raises(NotImplementedError, match="ORB"):
+        run_rgbd.main(["--config", str(cfg), "--cpu", "--frontend", "orb", "--out", str(out)])
