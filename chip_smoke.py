@@ -134,7 +134,29 @@ Phases (any failed check makes the exit code non-zero):
     counts); a System with ``initScalarMethod`` 1 (ATE < 2 cm); the
     Morton-window 3-NN on the card against the CPU on frame 0's candidates
     (1e-6 relative, equal Morton codes); the exact 3-NN's host time per
-    densify.
+    densify;
+21. the ORB frontend's modules on the card against the CPU (no kernel is
+    involved) on a VGA TUM-like sequence with TUM1's distortion warped in:
+    the frontend pins full f32 (TF32 off); ``extract_orb``'s keypoints
+    equal and its descriptors bit for bit on at least 99% of the valid
+    rows; ``hamming_matrix`` exact; ``pose_optimization`` and a 6-keyframe
+    ``local_bundle_adjustment`` (their inputs taken from the frontend run
+    over the first 6 frames at the ground-truth poses) within 1e-4, with
+    equal inlier masks, and two card runs of the local BA bitwise equal
+    (no atomics); wall times of the extraction, the Hamming matrix,
+    ``search_by_projection``, the pose optimization and the local BA;
+22. ``System(frontend="orb")`` with TUM1 (its distortion, ``useLoop`` on,
+    the packaged vocabulary) over the distorted sequence's first 10 frames:
+    ATE < 2 cm, PSNR >= 18 dB, launches K1 = K2f = K2b = the tracking
+    iterations, K4 = K5 = init + 9 x 100, K3 = 9, K7 = K8 = 0; a 4-frame
+    rerun bitwise equal (poses, splat map, map points); the median frame
+    split into ``frontend``, ``kf``, ``track`` and ``map``, and
+    ``GeometricFrontend.timings`` per phase;
+23. loop closing on ``tests/test_loop_e2e.py``'s scene (96x72, 16 frames,
+    poses injected under accumulating drift): the loop fires and the late
+    keyframes end closer to the ground truth than 0.7x the injected drift;
+    the closure's time (``verify`` + ``correct`` + fuse + global BA).
+Phase 18 also runs ``profile_frontend`` (6 frames at 320x240).
 It prints a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -1390,6 +1412,7 @@ def phase_profilers(torch, checks) -> dict:
         "profile_paired_parts": [],
         "profile_gather": [],
         "profile_mapping_quality": ["--frames", "3", "--ablate", "base,freshbins,lr2,lrhalf"],
+        "profile_frontend": ["--frames", "6"],
     }
 
     def finite(d) -> bool:
@@ -1416,6 +1439,341 @@ def phase_profilers(torch, checks) -> dict:
         out[name] = res
     return out
 
+
+# ---------------------------------------------------------------- ORB slice
+
+ORB_FRAMES = 6  # phase 21: frames the frontend runs over (6 keyframes: one local BA of 6)
+# Phase 23: the loop-closing scene of tests/test_loop_e2e.py.
+LOOP_CAM = dict(fx=90.0, fy=90.0, cx=48.0, cy=36.0, width=96, height=72)
+
+
+def _gray(torch, fr, dev):
+    rgb = torch.as_tensor(fr.rgb, device=dev)
+    return 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+
+
+def _to_cpu(torch, x):
+    """Tensors (also inside tuples, lists, dicts and NamedTuples) moved to the CPU."""
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_cpu(torch, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_cpu(torch, v) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_cpu(torch, v) for k, v in x.items()}
+    return x
+
+
+class _Capture:
+    """Within the block, the arguments of the last call of ``module.name``
+    (and the call count) are kept."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.args, self.kw, self.calls = module, name, None, None, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            self.args, self.kw = a, kw
+            self.calls += 1
+            return self.fn(*a, **kw)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_frontend(torch, checks, dev) -> dict:
+    """Phase 21: the ORB frontend's modules on the card against the CPU on
+    frames of the distorted TUM-like sequence (no kernel is involved)."""
+    from gsorb_slam_tpu_torch.core.camera import Distortion
+    from gsorb_slam_tpu_torch.core.config import ORBConfig
+    from gsorb_slam_tpu_torch.frontend import ba, matcher, orb
+    from gsorb_slam_tpu_torch.profiling.common import wall_ms
+    from gsorb_slam_tpu_torch.slam import geometric as G
+    from gsorb_slam_tpu_torch.slam.dataset import TUMLikeDataset
+
+    width, height = TUM1["Camera"]["width"], TUM1["Camera"]["height"]
+    t0 = time.perf_counter()
+    ds = TUMLikeDataset(n_frames=SYS_SEQ_FRAMES, width=width, height=height,
+                        apply_distortion=True, noise=True, seed=0, device=dev)
+    frames = [ds[i] for i in range(max(SYS_FRAMES, ORB_FRAMES))]
+    print(f"# phase 21: distorted TUM-like sequence of {SYS_SEQ_FRAMES} frames generated in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ocfg = ORBConfig()
+    fe = G.GeometricFrontend(ds.cam, ocfg, dist=Distortion(*TUMLikeDataset.DIST), device=dev)
+    checks.record("frontend pins full f32 on the card (TF32 off, cuDNN deterministic)", 0.0, 0.0,
+                  ok=not torch.backends.cuda.matmul.allow_tf32
+                  and not torch.backends.cudnn.allow_tf32 and torch.backends.cudnn.deterministic)
+
+    g0 = _gray(torch, frames[0], dev)
+    f_card = orb.extract_orb(g0, ocfg)
+    f_cpu = orb.extract_orb(g0.cpu(), ocfg)
+    same_kp = all(torch.equal(getattr(f_card, k).cpu(), getattr(f_cpu, k))
+                  for k in ("uv", "octave", "valid"))
+    checks.record("extract_orb card == CPU: uv, octave, valid", 0.0, 0.0, ok=same_kp)
+    valid = f_cpu.valid
+    rows_eq = (f_card.descriptors.cpu() == f_cpu.descriptors).all(1)[valid]
+    share = float(rows_eq.float().mean())
+    checks.record(f"extract_orb descriptors bit for bit on >= 99% of the {int(valid.sum())} "
+                  f"valid rows", share, 0.99, ok=share >= 0.99)
+    checks.record("extract_orb response card vs CPU (max abs)",
+                  float((f_card.response.cpu() - f_cpu.response).abs().max()), 1e-5)
+    checks.record("extract_orb angle card vs CPU on valid rows (rad)",
+                  float((f_card.angle.cpu() - f_cpu.angle)[valid].abs().max()), 1e-4)
+    f1 = orb.extract_orb(_gray(torch, frames[1], dev), ocfg)
+    D_card = matcher.hamming_matrix(f_card.descriptors, f1.descriptors)
+    D_cpu = matcher.hamming_matrix(f_card.descriptors.cpu(), f1.descriptors.cpu())
+    checks.record("hamming_matrix card == CPU", 0.0, 0.0, ok=bool(torch.equal(D_card.cpu(), D_cpu)))
+
+    # The frontend over the first frames at the ground-truth poses, a
+    # keyframe each frame (one local BA over 6 keyframes at the 6th).
+    with _Capture(G.ba, "pose_optimization") as po, \
+            _Capture(G.ba, "local_bundle_adjustment") as lba, \
+            _Capture(G, "search_by_projection") as sbp:
+        fe.create_keyframe(fe._extract(g0), frames[0].depth, frames[0].gt_T_cw, 0)
+        for i in range(1, ORB_FRAMES):
+            res = fe.process_frame(_gray(torch, frames[i], dev), frames[i].gt_T_cw)
+            fe.create_keyframe(res.feats, frames[i].depth, frames[i].gt_T_cw, i)
+    torch.cuda.synchronize()
+    print(f"# frontend over {ORB_FRAMES} frames: {len(fe.keyframes)} keyframes, "
+          f"{int(fe.pt_valid.sum())} map points; pose optimizations {po.calls}, local BAs "
+          f"{lba.calls}; phases (s) {json.dumps({k: round(v, 4) for k, v in fe.timings.items()})}",
+          flush=True)
+    checks.record("frontend ran a pose optimization and a 6-keyframe local BA", 0.0, 0.0,
+                  ok=po.calls >= 1 and lba.calls >= 1 and lba.args[0].shape[0] == 6)
+
+    p_card = po.fn(*po.args, **po.kw)
+    p_cpu = po.fn(*_to_cpu(torch, po.args), **_to_cpu(torch, po.kw))
+    err_po = float((p_card.T_cw.cpu() - p_cpu.T_cw).abs().max())
+    checks.record(f"pose_optimization card vs CPU ({po.args[1].shape[0]} matches; T max abs)",
+                  err_po, 1e-4)
+    checks.record("pose_optimization inliers card == CPU", 0.0, 0.0,
+                  ok=bool(torch.equal(p_card.inliers.cpu(), p_cpu.inliers)))
+    l_card = lba.fn(*lba.args, **lba.kw)
+    l_card2 = lba.fn(*lba.args, **lba.kw)
+    l_cpu = lba.fn(*_to_cpu(torch, lba.args), **_to_cpu(torch, lba.kw))
+    n_obs = lba.args[2].shape[0]
+    err_lp = float((l_card.poses.cpu() - l_cpu.poses).abs().max())
+    err_lx = float((l_card.points.cpu() - l_cpu.points).abs().max())
+    checks.record(f"local_bundle_adjustment card vs CPU poses ({n_obs} observations, max abs)",
+                  err_lp, 1e-4)
+    checks.record("local_bundle_adjustment card vs CPU points (m, max abs)", err_lx, 1e-4)
+    flips = int((l_card.inlier_obs.cpu() != l_cpu.inlier_obs).sum())
+    checks.record("local_bundle_adjustment inlier observations differing card vs CPU", flips, 0)
+    checks.record("local_bundle_adjustment two card runs bitwise equal (no atomics)", 0.0, 0.0,
+                  ok=bool(torch.equal(l_card.poses, l_card2.poses)
+                          and torch.equal(l_card.points, l_card2.points)
+                          and torch.equal(l_card.inlier_obs, l_card2.inlier_obs)))
+
+    t = {
+        "extract_orb": wall_ms(lambda: orb.extract_orb(g0, ocfg), dev, 3),
+        "extract (undistort + quad-tree)": wall_ms(lambda: fe._extract(g0), dev, 3),
+        "hamming_matrix 1000 x 1000": wall_ms(
+            lambda: matcher.hamming_matrix(f_card.descriptors, f1.descriptors), dev, 10),
+        f"search_by_projection ({sbp.args[0].shape[0]} points)": wall_ms(
+            lambda: sbp.fn(*sbp.args, **sbp.kw), dev, 5),
+        f"pose_optimization ({po.args[1].shape[0]} matches)": wall_ms(
+            lambda: po.fn(*po.args, **po.kw), dev, 3),
+        f"local_bundle_adjustment 6 keyframes ({n_obs} observations)": wall_ms(
+            lambda: lba.fn(*lba.args, **lba.kw), dev, 1),
+    }
+    for name, ms in t.items():
+        print(f"# frontend {name}: {ms:.3f} ms (wall, to a synchronize)", flush=True)
+    return {"frames": frames, "ms": t}
+
+
+def phase_orb_system(torch, checks, dev, frames) -> dict:
+    """Phase 22: ``System(frontend="orb")`` with TUM1 (distortion, loop
+    closing on the packaged vocabulary) over the distorted sequence's first
+    frames."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.eval.evaluate import evaluate_sequence
+    from gsorb_slam_tpu_torch.interop import system_config_from_dict
+    from gsorb_slam_tpu_torch.slam.system import System
+    from gsorb_slam_tpu_torch.splat.gaussians import PARAM_NAMES
+
+    cfg = system_config_from_dict(TUM1)
+    raster = System.default_raster_config(TUM1["Camera"]["width"])
+    phases = ("frontend", "kf", "track", "map")
+
+    def run(n, snapshot_at=None):
+        system = System(cfg, raster=raster, seed=0, device=dev, frontend="orb")
+        rows, snap = [], None
+        for i, fr in enumerate(frames[:n]):
+            tm = dict(system.timings)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            system.track_rgbd(fr.rgb, fr.depth, fr.timestamp)
+            torch.cuda.synchronize()
+            rows.append([time.perf_counter() - t1]
+                        + [system.timings[k] - tm[k] for k in phases])
+            if i + 1 == snapshot_at:
+                snap = ({k: getattr(system.gm, k).clone() for k in PARAM_NAMES},
+                        system.fe.pt_pos.copy())
+        return system, np.asarray(rows), snap
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    system, rows, snap = run(SYS_FRAMES, snapshot_at=SYS_RERUN_FRAMES)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    checks.record("ORB System has a loop closer with the packaged vocabulary", 0.0, 0.0,
+                  ok=system.loop_closer is not None and system.fe is not None
+                  and not system.fe.dist.is_zero())
+    mcfg = system.cfg.mapping
+    n_track = sum(r.track_iters for r in system.trajectory[1:])
+    n_map = mcfg.init_iters + mcfg.num_iters * (SYS_FRAMES - 1)
+    print(f"# ORB System launches: {json.dumps(launches)}", flush=True)
+    for name, want in (("fused_track_fast", n_track), ("preprocess_fwd", n_track),
+                       ("preprocess_bwd", n_track), ("blend_flat_fwd", n_map),
+                       ("blend_flat_bwd", n_map), ("fused_track_exact", 0), ("paired_track", 0)):
+        checks.record(f"ORB System {name} launches == {want}", launches[name], want,
+                      ok=launches[name] == want)
+    checks.record(f"ORB System blend_forward launches == {SYS_FRAMES - 1}",
+                  launches["blend_forward"], SYS_FRAMES - 1,
+                  ok=launches["blend_forward"] == SYS_FRAMES - 1)
+    result = evaluate_sequence(system, frames[:SYS_FRAMES], stride=1)
+    print(f"# ORB System evaluation: {json.dumps(result)}", flush=True)
+    checks.record("ORB System ATE RMSE (m, Horn-aligned)", result["ate_rmse"], 0.02)
+    checks.record("ORB System PSNR (dB, at least)", result["psnr"], 18.0,
+                  ok=result["psnr"] >= 18.0)
+    fe = system.fe
+    print(f"# ORB System: keyframes {[r.frame_id for r in system.trajectory if r.is_keyframe]}; "
+          f"tracking iterations {[r.track_iters for r in system.trajectory]}; map points "
+          f"{int(fe.pt_valid.sum())}; frontend keyframes {len(fe.keyframes)}; loop events "
+          f"{system.loop_events}", flush=True)
+    tracked = rows[1:]
+    med = {k: float(np.median(tracked[:, i + 1])) for i, k in enumerate(phases)}
+    split = {"frame_s_median": float(np.median(tracked[:, 0])), **{f"{k}_s": v
+                                                                   for k, v in med.items()},
+             "frame0_s": float(rows[0, 0]),
+             "ate_rmse_m": result["ate_rmse"], "psnr_db": result["psnr"]}
+    split["frontend_share"] = med["frontend"] / split["frame_s_median"]
+    print(f"# ORB System frame split (medians over frames 1-{SYS_FRAMES - 1}): "
+          f"{json.dumps(split)}", flush=True)
+    print(f"# ORB System frame rows (s: wall, {', '.join(phases)}): "
+          f"{json.dumps([[round(v, 4) for v in r] for r in rows.tolist()])}", flush=True)
+    n_fe = SYS_FRAMES - 1
+    print(f"# GeometricFrontend.timings (ms per frame over {n_fe} frames): "
+          f"{json.dumps({k: round(v / n_fe * 1e3, 3) for k, v in fe.timings.items()})}",
+          flush=True)
+
+    system2, _, _ = run(SYS_RERUN_FRAMES)
+    same = all(np.array_equal(a.T_cw, b.T_cw) for a, b in zip(
+        system2.trajectory, system.trajectory[:SYS_RERUN_FRAMES]))
+    same &= all(torch.equal(getattr(system2.gm, k), snap[0][k]) for k in PARAM_NAMES)
+    same &= np.array_equal(system2.fe.pt_pos, snap[1])
+    checks.record(f"ORB System rerun of {SYS_RERUN_FRAMES} frames bitwise equal (poses, splat "
+                  "map, map points)", 0.0, 0.0, ok=same)
+    return {"split": split, "launches": launches}
+
+
+def phase_loop(torch, checks, dev) -> dict:
+    """Phase 23: loop closing on the card, on tests/test_loop_e2e.py's
+    scene: a revisiting trajectory with poses injected under accumulating
+    drift; the loop must fire and pull the late keyframes closer to the
+    ground truth than 0.7x the injected drift."""
+    from gsorb_slam_tpu_torch.core.camera import Camera
+    from gsorb_slam_tpu_torch.core.config import (
+        CameraConfig,
+        MappingConfig,
+        ORBConfig,
+        SystemConfig,
+        TrackingConfig,
+    )
+    from gsorb_slam_tpu_torch.frontend.vocab import default_vocabulary
+    from gsorb_slam_tpu_torch.raster import RasterConfig
+    from gsorb_slam_tpu_torch.slam.dataset import SyntheticDataset
+    from gsorb_slam_tpu_torch.slam.system import System
+
+    xs = list(np.arange(0.0, 1.6, 0.2)) + [1.1, 0.7, 0.35, 0.1] + [0.015, 0.0, 0.012, 0.005]
+    traj = []
+    for i, x in enumerate(xs):
+        T = np.eye(4, dtype=np.float32)
+        T[0, 3] = -x
+        T[1, 3] = 0.01 * np.sin(i)
+        traj.append(T)
+
+    def drift(i):
+        ang = 0.003 * i
+        T = np.eye(4, dtype=np.float32)
+        T[0, 0], T[0, 2], T[2, 0], T[2, 2] = np.cos(ang), np.sin(ang), -np.sin(ang), np.cos(ang)
+        T[0, 3], T[1, 3] = 0.009 * i, 0.003 * i
+        return T
+
+    cam = Camera(**LOOP_CAM)
+    cfg = SystemConfig(
+        camera=CameraConfig(**LOOP_CAM, fps=10), orb=ORBConfig(n_features=300, n_levels=3),
+        mapping=MappingConfig(num_iters=8, init_iters=10, max_gaussians=16384, window_size=3,
+                              covis_window=2),
+        tracking=TrackingConfig(num_iters=4, lost_num_iters=4))
+    ds = SyntheticDataset(cam, n_splats=3000, seed=5, trajectory=traj, device=dev)
+    system = System(cfg, max_keyframes=32, frontend="orb", vocabulary=default_vocabulary(),
+                    raster=RasterConfig(tile=16, tile_capacity=1024, max_dup=16, chunk=128,
+                                        dilate_px=8.0), device=dev)
+    lc = system.loop_closer
+    lc.min_gap, lc.min_inliers = 8, 12
+    system.max_frames_between_kf = 1
+    spent = {"verify": 0.0, "correct": 0.0, "global_ba": 0.0, "close": 0.0}
+
+    def timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent[key] += time.perf_counter() - t1
+
+        setattr(obj, name, wrapped)
+
+    timed(lc, "verify", "verify")
+    timed(lc, "correct", "correct")
+    timed(system.fe, "global_ba", "global_ba")
+    close = system._maybe_close_loop
+    close_s = []
+
+    def maybe_close(kf):
+        n0 = len(system.loop_events)
+        t1 = time.perf_counter()
+        close(kf)
+        torch.cuda.synchronize()
+        if len(system.loop_events) > n0:
+            close_s.append(time.perf_counter() - t1)
+
+    system._maybe_close_loop = maybe_close
+    injected = {}
+    for i, fr in enumerate(ds):
+        injected[i] = (fr.gt_T_cw @ np.linalg.inv(drift(i))).astype(np.float32)
+        system.track_rgbd(fr.rgb, fr.depth, fr.timestamp, gt_pose=injected[i])
+    err_inj, err_corr = [], []
+    centre = lambda T: -T[:3, :3].T @ T[:3, 3]
+    for kf in system.fe.keyframes:
+        if kf.frame_id >= len(traj) // 2:
+            c_gt = centre(traj[kf.frame_id])
+            err_inj.append(np.linalg.norm(centre(injected[kf.frame_id]) - c_gt))
+            err_corr.append(np.linalg.norm(centre(np.asarray(kf.T_cw)) - c_gt))
+    print(f"# loop closing: {len(system.fe.keyframes)} keyframes, loop events "
+          f"{system.loop_events}; late keyframes' centre error corrected "
+          f"{np.mean(err_corr) if err_corr else float('nan'):.4f} m against injected "
+          f"{np.mean(err_inj) if err_inj else float('nan'):.4f} m", flush=True)
+    checks.record("loop closing fired on the revisit", len(system.loop_events), 1,
+                  ok=len(system.loop_events) >= 1)
+    ratio = float(np.mean(err_corr) / np.mean(err_inj)) if err_corr else float("inf")
+    checks.record("loop-corrected late keyframe error / injected drift", ratio, 0.7,
+                  ok=ratio < 0.7)
+    out = {"closure_s": close_s, **{f"{k}_s": v for k, v in spent.items() if k != "close"}}
+    print(f"# loop closure time (s, verify + correct + fuse + global BA): {json.dumps(out)}",
+          flush=True)
+    return out
 
 def profile_call(torch, fn, best_s: float, what: str) -> dict | None:
     """One call of ``fn`` under torch.profiler (``profiling.common.profile_call``):
@@ -1785,6 +2143,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_disk(torch, checks, dev, sysres["frames"], tmp)
         phase_scale_inits(torch, checks, dev, sysres["frames"], tmp)
+
+    # ---- 21-23. the ORB frontend, the ORB System and loop closing ----
+    fe_res = phase_frontend(torch, checks, dev)
+    phase_orb_system(torch, checks, dev, fe_res["frames"])
+    phase_loop(torch, checks, dev)
 
     with torch.no_grad():
         k1_ms = time_ms(torch, lambda: tracking_loss_grad(

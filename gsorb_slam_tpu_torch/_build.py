@@ -159,22 +159,28 @@ def build() -> Path:
     return lib_path
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use.
+def pin_full_f32() -> None:
+    """Pin float32 matmuls and convolutions on the card to full precision
+    (TF32 keeps ~3 decimal digits, which the pose geometry cannot afford,
+    and a TF32 keypoint angle moves BRIEF's steered offsets) and cuDNN to
+    its deterministic algorithms (the mapping loss's SSIM convolutions sit
+    on the differentiated path, and the mapped map must be reproducible).
+    Whatever reaches the card first calls it: the kernel library and the
+    ORB frontend."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
-    This is where the port starts on the card, so it also pins float32
-    matmuls and convolutions to full precision (TF32 keeps ~3 decimal
-    digits, which the pose geometry cannot afford) and cuDNN to its
-    deterministic algorithms (the mapping loss's SSIM convolutions sit on
-    the differentiated path, and the mapped map must be reproducible)."""
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use; pins full f32 first
+    (:func:`pin_full_f32`)."""
     global _lib
     with _lock:
         if _lib is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("the CUDA kernels need a CUDA device")
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cudnn.deterministic = True
+            pin_full_f32()
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)

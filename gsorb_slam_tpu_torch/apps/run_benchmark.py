@@ -11,16 +11,17 @@ blended-weight report at the last pose, writing the same artifacts as the
 JAX package with ``"backend": "cuda"`` or ``"cpu"``.
 
 Runs on the card; ``--cpu`` runs the kernels' plain versions on the CPU.
-The ORB frontend (``--frontend orb``, the default, as in the JAX package),
-loop closing (``--loop``) and TUM1's distortion (the default; pass
-``--no-distortion``) raise until the ORB slice is ported. The JAX flags
+The defaults are the JAX package's: the ORB frontend (``--frontend orb``)
+and TUM1's lens distortion warped into the images (``--no-distortion``
+turns it off); ``--loop`` adds loop closing with the packaged vocabulary
+(the sweep returns to its start, so a long run can close a loop). The JAX flags
 that pick a TPU kernel layout (``--blend-bf16``, ``--elem-bf16``,
 ``--no-elem-bf16``, ``--no-preprocess-pallas``) raise: the port has no
 such layout.
 
 Usage:
-    python -m gsorb_slam_tpu_torch.apps.run_benchmark --frontend render \\
-        --no-distortion --frames 100 --out experiments/tum_like [--cpu]
+    python -m gsorb_slam_tpu_torch.apps.run_benchmark --frames 100 \\
+        --out experiments/tum_like [--frontend render] [--no-distortion] [--loop] [--cpu]
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--track-iters", type=int, default=200)
     ap.add_argument("--map-iters", type=int, default=100)
     ap.add_argument("--no-distortion", action="store_true",
-                    help="required: TUM1's distortion needs the ORB slice")
+                    help="generate the sequence without TUM1's lens distortion")
     ap.add_argument("--no-noise", action="store_true")
     ap.add_argument("--frontend", default="orb", choices=["orb", "render"],
                     help="'orb' (the JAX default) raises until the ORB slice; pass 'render'")
@@ -78,7 +79,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--track-chunk", type=int, default=None,
                     help="override the tracking view's chunk")
     ap.add_argument("--loop", action="store_true",
-                    help="loop closing: raises until the ORB slice")
+                    help="enable loop closing (loads the packaged ORB vocabulary)")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
     return ap
 
@@ -100,18 +101,10 @@ def _raster_config(args, width: int):
 
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
-    if args.frontend == "orb":
-        raise NotImplementedError("--frontend orb needs the ORB frontend (the ORB slice); "
-                                  "pass --frontend render")
-    if args.loop:
-        raise NotImplementedError("--loop needs loop closing (the ORB slice)")
     for flag in _TPU_ONLY_FLAGS:
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')} chooses a TPU kernel "
                                       "layout the port does not have")
-    if not args.no_distortion:
-        raise NotImplementedError("TUM1's distortion needs undistort_points and an image "
-                                  "remap (the ORB slice); pass --no-distortion")
 
     import torch
 
@@ -134,15 +127,18 @@ def main(argv=None) -> dict:
     print(f"backend: {dev.type}", flush=True)
     t0 = time.time()
     ds = TUMLikeDataset(n_frames=args.frames, seed=args.seed, width=args.width,
-                        height=args.height, apply_distortion=False, noise=not args.no_noise,
+                        height=args.height, apply_distortion=not args.no_distortion,
+                        noise=not args.no_noise,
                         cache_dir=args.cache, device=dev)
     print(f"dataset built in {time.time() - t0:.1f}s "
           f"({len(ds)} frames {args.width}x{args.height})", flush=True)
 
     cam = ds.cam
+    k1, k2, p1, p2, k3 = TUMLikeDataset.DIST if not args.no_distortion else (0, 0, 0, 0, 0)
     cfg = SystemConfig(
         camera=CameraConfig(width=args.width, height=args.height, fx=cam.fx, fy=cam.fy,
-                            cx=cam.cx, cy=cam.cy, fps=30, depth_map_factor=1.0),
+                            cx=cam.cx, cy=cam.cy, fps=30, k1=k1, k2=k2, p1=p1, p2=p2, k3=k3,
+                            depth_map_factor=1.0),
         orb=ORBConfig(n_features=1000, n_levels=8),
         mapping=MappingConfig(num_iters=args.map_iters, init_iters=min(200, 4 * args.map_iters),
                               max_gaussians=args.max_gaussians, madien_mul=10.0),
@@ -152,9 +148,9 @@ def main(argv=None) -> dict:
             **({"early_stop_delta": args.early_stop_delta}
                if args.early_stop_delta is not None else {}),
         ),
-        debug=DebugConfig(use_loop=False),
+        debug=DebugConfig(use_loop=args.loop),
     )
-    sys_ = System(cfg, max_keyframes=128, frontend="render",
+    sys_ = System(cfg, max_keyframes=128, frontend=args.frontend,
                   raster=_raster_config(args, args.width), device=dev)
     if args.bucket_floor:
         sys_.prefix_bucket_floor = args.bucket_floor

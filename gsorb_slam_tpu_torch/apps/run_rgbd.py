@@ -4,7 +4,7 @@ the ``Examples/RGB-D/rgbd_tum.cc`` equivalent).
 Usage:
     python -m gsorb_slam_tpu_torch.apps.run_rgbd --config configs/tum1.yaml \\
         [--dataset /path/to/sequence] [--type tum|replica|scannet|synthetic|tumlike] \\
-        [--max-frames N] [--out DIR] [--cpu]
+        [--frontend render|orb] [--vocab ORBvoc.txt] [--max-frames N] [--out DIR] [--cpu]
 
 Runs the System over a sequence on the card (``--cpu``: on the CPU, through
 the kernels' plain versions) and writes the reference's output contract
@@ -15,10 +15,10 @@ as ``CameraTrajectory.txt``), ``GaussianModel.ply`` (replay.py compatible),
 recorded sequence from ``--dataset`` (default: the config's
 ``Dataset.path``); ``synthetic`` is the procedural scene at the config's
 camera; ``tumlike`` the TUM-fr1-like room at the config's resolution with
-TUM1's intrinsics, undistorted. A YAML ``--config`` needs PyYAML; a
-``.json`` file with the same keys does not. The ORB frontend
-(``--frontend orb``) and loop closing's vocabulary (``--vocab``) raise
-until the ORB slice is ported.
+TUM1's intrinsics, undistorted. ``--frontend orb`` runs the ORB
+geometric frontend (with loop closing when the config sets
+``Debug.useLoop``, on ``--vocab`` or else the packaged vocabulary). A YAML
+``--config`` needs PyYAML; a ``.json`` file with the same keys does not.
 """
 
 from __future__ import annotations
@@ -43,11 +43,6 @@ def main(argv=None) -> int:
     ap.add_argument("--no-eval", action="store_true")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
     args = ap.parse_args(argv)
-    if args.frontend == "orb" or args.vocab:
-        raise NotImplementedError(
-            "--frontend orb and --vocab need the ORB frontend and loop closing, which come "
-            "with the ORB slice; the port runs --frontend render"
-        )
 
     import numpy as np
 
@@ -78,9 +73,15 @@ def main(argv=None) -> int:
     else:
         ds = open_dataset(ds_type, args.dataset or cfg.dataset.path, cc.depth_map_factor)
 
-    system = System(cfg, frontend="render", device=device)
+    vocab = None
+    if args.vocab:
+        from gsorb_slam_tpu_torch.frontend.vocab import load_orbvoc_text
+
+        print(f"loading vocabulary {args.vocab} ...")
+        vocab = load_orbvoc_text(args.vocab)
+    system = System(cfg, frontend=args.frontend, vocabulary=vocab, device=device)
     n = len(ds) if args.max_frames is None else min(len(ds), args.max_frames)
-    print(f"tracking {n} frames ({ds_type}, {device}) ...")
+    print(f"tracking {n} frames ({ds_type}, frontend={args.frontend}, {device}) ...")
     latencies = []
     t_start = time.perf_counter()
     for i in range(n):

@@ -97,3 +97,88 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply ``T [4,4]`` (or batched ``[..., 4, 4]``) to points ``[..., N, 3]``."""
     R = T[..., None, :3, :3]  # [..., 1, 3, 3]
     return (R * pts[..., None, :]).sum(-1) + T[..., None, :3, 3]
+
+
+def _matmul3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A [..., n, k] @ B [..., k, m]`` as explicit f32 products."""
+    return (A[..., :, :, None] * B[..., None, :, :]).sum(-2)
+
+
+def skew(w: torch.Tensor) -> torch.Tensor:
+    """``[..., 3]`` -> skew-symmetric ``[..., 3, 3]``."""
+    z = torch.zeros_like(w[..., 0])
+    return torch.stack(
+        [
+            torch.stack([z, -w[..., 2], w[..., 1]], dim=-1),
+            torch.stack([w[..., 2], z, -w[..., 0]], dim=-1),
+            torch.stack([-w[..., 1], w[..., 0], z], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def so3_exp(w: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Rodrigues: axis-angle ``[..., 3]`` -> rotation matrix ``[..., 3, 3]``
+    (the g2o ``SE3Quat::exp`` equivalent used by the pose solvers)."""
+    theta = torch.linalg.norm(w, dim=-1, keepdim=True)
+    safe = torch.clamp(theta, min=eps)
+    big = theta[..., None] > eps
+    a = torch.where(big, (torch.sin(safe) / safe)[..., None], torch.ones_like(big, dtype=w.dtype))
+    b = torch.where(big, ((1.0 - torch.cos(safe)) / (safe * safe))[..., None],
+                    torch.full_like(big, 0.5, dtype=w.dtype))
+    K = skew(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
+    return eye + a * K + b * _matmul3(K, K)
+
+
+def so3_log(R: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Rotation matrix ``[..., 3, 3]`` -> axis-angle ``[..., 3]``."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin_t = torch.sin(theta)[..., None]
+    th = theta[..., None]
+    scale = torch.where(th > eps, th / (2.0 * torch.clamp(sin_t, min=eps)),
+                        torch.full_like(th, 0.5))
+    return w * scale
+
+
+def se3_log(T: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Rigid transform ``[..., 4, 4]`` -> twist ``[..., 6]`` (rho, phi).
+
+    ``eps`` gates the small-angle Taylor branch: in f32 the closed form
+    ``(1 - theta sin / (2 (1 - cos))) / theta^2`` cancels catastrophically
+    below ~1e-3 rad, so the threshold is deliberately wide."""
+    phi = so3_log(T[..., :3, :3], eps)
+    theta = torch.linalg.norm(phi, dim=-1, keepdim=True)
+    safe = torch.clamp(theta, min=eps)
+    K = skew(phi)
+    half_cot = torch.where(
+        theta[..., None] > eps,
+        ((1.0 - safe * torch.sin(safe) / (2.0 * (1.0 - torch.cos(safe)))) / (safe * safe))[..., None],
+        torch.full_like(theta[..., None], 1.0 / 12.0),
+    )
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(K.shape)
+    Vinv = eye - 0.5 * K + half_cot * _matmul3(K, K)
+    return torch.cat([_matvec(Vinv, T[..., :3, 3]), phi], dim=-1)
+
+
+def se3_exp(xi: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """se(3) twist ``[..., 6]`` (rho, phi) -> ``T [..., 4, 4]``."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    R = so3_exp(phi, eps)
+    theta = torch.linalg.norm(phi, dim=-1, keepdim=True)
+    safe = torch.clamp(theta, min=eps)
+    big = theta[..., None] > eps
+    K = skew(phi)
+    b = torch.where(big, ((1.0 - torch.cos(safe)) / (safe * safe))[..., None],
+                    torch.full_like(big, 0.5, dtype=xi.dtype))
+    c = torch.where(big, ((safe - torch.sin(safe)) / safe**3)[..., None],
+                    torch.full_like(big, 1.0 / 6.0, dtype=xi.dtype))
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(R.shape)
+    V = eye + b * K + c * _matmul3(K, K)
+    t = _matvec(V, rho)
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=xi.dtype, device=xi.device)
+    return torch.cat([top, bottom.expand(xi.shape[:-1] + (1, 4))], dim=-2)

@@ -1,3 +1,4 @@
-"""The port's frontend package. So far it holds only the ctypes binding of
-the native host library (``native/gsorb_native.cpp``); the ORB frontend
-comes with its own slice."""
+"""The port's geometric frontend (counterpart of ``gsorb_slam_tpu/frontend/``):
+ORB extraction, descriptor matching, bundle adjustment, PnP and Sim3
+RANSAC, triangulation, the BoW vocabulary, and the ctypes binding of the
+native host library."""

@@ -2,11 +2,10 @@
 ``gsorb_slam_tpu/frontend/native.py``).
 
 ``native/gsorb_native.cpp`` holds the host-sequential pieces of the
-runtime. The port binds the one it calls: the exact 3-nearest-neighbour
-grid search of the splat scale initializers. The ORB quad-tree keypoint
-distribution is bound with the ORB frontend that calls it, and the
-timestamp association is ``slam.dataset.associate_timestamps`` in Python,
-as in the JAX loaders. The port compiles that source itself at first use,
+runtime. The port binds the two it calls: the exact 3-nearest-neighbour
+grid search of the splat scale initializers and the ORB quad-tree keypoint
+distribution (``DistributeOctTree``). The timestamp association is
+``slam.dataset.associate_timestamps`` in Python, as in the JAX loaders. The port compiles that source itself at first use,
 with ``g++ -O3 -fPIC -shared -std=c++17``, into ``build/native/`` at the
 repository root (``build/`` is in ``.gitignore``), under a name that
 carries a hash of the source and flags, and never loads or writes ``native/libgsorb_native.so``
@@ -36,7 +35,11 @@ _lib: ctypes.CDLL | None = None
 
 _FP = ctypes.POINTER(ctypes.c_float)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
-_SIGNATURES = {"exact_knn3": [_FP, _U8P, ctypes.c_int, _FP]}
+_F = ctypes.c_float
+_SIGNATURES = {
+    "exact_knn3": [_FP, _U8P, ctypes.c_int, _FP],
+    "quadtree_distribute": [_FP, _FP, _FP, ctypes.c_int, _F, _F, _F, _F, ctypes.c_int, _U8P],
+}
 
 
 def library_path() -> Path:
@@ -96,3 +99,26 @@ def exact_knn3_native(pts: np.ndarray, valid: np.ndarray) -> np.ndarray:
     library().exact_knn3(_ptr(pts, ctypes.c_float), _ptr(v, ctypes.c_uint8), len(pts),
                          _ptr(out, ctypes.c_float))
     return out
+
+
+def quadtree_distribute(
+    x: np.ndarray, y: np.ndarray, response: np.ndarray, n_keep: int,
+    bounds: tuple[float, float, float, float] | None = None,
+) -> np.ndarray:
+    """The reference's quad-tree spatial balancing (``DistributeOctTree``)
+    of keypoints ``(x, y)`` with their responses down to ``n_keep`` ->
+    boolean keep mask. ``bounds`` (min_x, min_y, max_x, max_y) default to
+    the points' box plus one pixel."""
+    n = len(x)
+    if n == 0:
+        return np.zeros(0, bool)
+    x = np.ascontiguousarray(x, np.float32)
+    y = np.ascontiguousarray(y, np.float32)
+    r = np.ascontiguousarray(response, np.float32)
+    if bounds is None:
+        bounds = (float(x.min()), float(y.min()), float(x.max()) + 1, float(y.max()) + 1)
+    keep = np.zeros(n, np.uint8)
+    library().quadtree_distribute(_ptr(x, ctypes.c_float), _ptr(y, ctypes.c_float),
+                                  _ptr(r, ctypes.c_float), n, *bounds, int(n_keep),
+                                  _ptr(keep, ctypes.c_uint8))
+    return keep.astype(bool)

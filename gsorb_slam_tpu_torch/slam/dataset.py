@@ -27,7 +27,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from gsorb_slam_tpu_torch.core.camera import Camera
+from gsorb_slam_tpu_torch.core.camera import Camera, Distortion, undistort_points
 from gsorb_slam_tpu_torch.raster import RasterConfig, render
 
 
@@ -357,9 +357,10 @@ class TUMLikeDataset(RGBDDataset):
     shake) and the Kinect noise model (depth sigma(z) = 0.0012 + 0.0019
     (z - 0.4)^2 m, 1/5000 m quantization, 1% dropout; rgb shot noise).
 
-    ``apply_distortion=True`` (TUM1's Brown-Conrady distortion warped into
-    the images) raises for now: it needs ``undistort_points``, which comes
-    with the ORB slice, and an image remap.
+    ``apply_distortion=True`` warps TUM1's Brown-Conrady distortion into
+    the images (``I_observed(x) = I_ideal(undistort(x))``, bilinear for the
+    color and nearest for the depth, through ``cv2.remap`` with a zero
+    border, as the JAX package does).
 
     ``cache_dir`` keeps the frames in a ``.npz`` there and reloads them on
     the next call with the same arguments. Its name (``tumlike_torch_...``)
@@ -368,6 +369,7 @@ class TUMLikeDataset(RGBDDataset):
 
     # TUM1 calibration (Examples/RGB-D/tum/TUM1.yaml)
     FX, FY, CX, CY = 517.306408, 516.469215, 318.643040, 255.313989
+    DIST = (0.262383, -0.953104, -0.005358, 0.002628, 1.163314)
 
     def __init__(
         self,
@@ -381,11 +383,6 @@ class TUMLikeDataset(RGBDDataset):
         cache_dir: Optional[str] = None,
         device: torch.device | str = "cuda",
     ):
-        if apply_distortion:
-            raise NotImplementedError(
-                "TUMLikeDataset(apply_distortion=True) needs undistort_points (the ORB "
-                "slice) and an image remap; pass apply_distortion=False"
-            )
         s = width / 640.0
         self.cam = Camera(fx=self.FX * s, fy=self.FY * s, cx=self.CX * s, cy=self.CY * s,
                           width=width, height=height)
@@ -412,6 +409,7 @@ class TUMLikeDataset(RGBDDataset):
         log_scales = np.log(np.full((n, 3), splat_spacing * 0.9, np.float32))
         rcfg = RasterConfig(tile=16, tile_capacity=2048, max_dup=16, chunk=256, dilate_px=2.0)
         rfn = _renderer(means, rgb, quats, logit_op, log_scales, self.cam, rcfg, device)
+        maps = self._undistort_maps() if apply_distortion else None
 
         self.poses = []
         self.frames = []
@@ -428,6 +426,13 @@ class TUMLikeDataset(RGBDDataset):
             out = rfn(T_cw)
             color = np.clip(_host(out.color), 0, 1)
             depth = np.where(_host(out.alpha) > 0.5, _host(out.median_depth), 0.0)
+            if maps is not None:
+                import cv2
+
+                color = cv2.remap(color, maps[0], maps[1], cv2.INTER_LINEAR,
+                                  borderMode=cv2.BORDER_CONSTANT)
+                depth = cv2.remap(depth, maps[0], maps[1], cv2.INTER_NEAREST,
+                                  borderMode=cv2.BORDER_CONSTANT)
             if noise:
                 sig = 0.0012 + 0.0019 * np.square(np.maximum(depth - 0.4, 0.0))
                 depth = depth + rng.normal(0, 1, depth.shape) * sig
@@ -441,6 +446,15 @@ class TUMLikeDataset(RGBDDataset):
             np.savez_compressed(cache, rgb=np.stack([f[0] for f in self.frames]),
                                 depth=np.stack([f[1] for f in self.frames]),
                                 poses=np.stack(self.poses))
+
+    def _undistort_maps(self) -> tuple[np.ndarray, np.ndarray]:
+        """``cv2.remap`` maps with ``I_observed(x) = I_ideal(undistort(x))``."""
+        H, W = self.cam.height, self.cam.width
+        uu, vv = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+        grid = torch.as_tensor(np.stack([uu.ravel(), vv.ravel()], -1))
+        und = undistort_points(self.cam, Distortion(*self.DIST), grid).numpy()
+        return (und[:, 0].reshape(H, W).astype(np.float32),
+                und[:, 1].reshape(H, W).astype(np.float32))
 
     def _build_room(self, rng, spacing):
         """Speckle-textured room surfaces + clutter as a dense splat cloud."""

@@ -1,12 +1,18 @@
 """The RGB-D SLAM System: the per-frame orchestration (counterpart of
-``gsorb_slam_tpu/slam/system.py`` for ``frontend="render"``).
+``gsorb_slam_tpu/slam/system.py`` for RGB-D input).
 
 Equivalent of ``System`` / ``Tracking::TrackWithGaussian``
 (``src/System.cc:34-229``, ``src/Tracking.cc:293-451``). Per frame:
 
-1. motion-model pose prediction,
+1. motion-model pose prediction; with ``frontend="orb"`` the geometric
+   frontend (``slam/geometric.py``) refines it by ORB matching against the
+   local map, and its inlier matches enter the tracking loss as the
+   reprojection term,
 2. tracking-by-rendering (``slam/tracking.py``: K2f, K1 / K7 / K8, K2b),
-3. the keyframe decision by novel-view overlap or frame gap,
+3. the keyframe decision by novel-view overlap, frame gap or (ORB) weak
+   matching; an ORB keyframe runs the frontend's local mapping and loop
+   closing (``slam/loop.py``: BoW detection, Sim3 verification, essential-
+   graph correction, SearchAndFuse and a global BA),
 4. prune, a render at the tracked pose (K3) and densification,
 5. the optimization window (``slam/window.py``) and ``numIters`` mapping
    Adam steps over it (``slam/mapping.py``: K4, K5).
@@ -34,8 +40,11 @@ step, one gradient ``all_reduce``); the paired tracking view is stripped
 group, the System keeps the single-device path, as the JAX System does on
 one device.
 
-The ORB frontend (``frontend="orb"``), loop closing and the monocular and
-stereo entry points are not ported yet and raise.
+With ``frontend="orb"``, 3 frames in a row without an ORB pose spend the
+lost-mode tracking budget and try relocalization (BoW candidates and
+PnP). The loop closer runs when ``Debug.useLoop`` is set, with the
+packaged vocabulary unless one is passed. The monocular and stereo entry
+points are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -51,9 +60,10 @@ import torch
 import torch.distributed as dist
 
 from gsorb_slam_tpu_torch import _build
-from gsorb_slam_tpu_torch.core.camera import Camera
+from gsorb_slam_tpu_torch.core.camera import Camera, Distortion
 from gsorb_slam_tpu_torch.core.config import SystemConfig, load_config
-from gsorb_slam_tpu_torch.interop import gaussian_map_from_numpy
+from gsorb_slam_tpu_torch.frontend.orb import ORBFeatures
+from gsorb_slam_tpu_torch.interop import frontend_state_from_numpy, gaussian_map_from_numpy
 from gsorb_slam_tpu_torch.parallel import mesh as PM
 from gsorb_slam_tpu_torch.parallel import tracking as PT
 from gsorb_slam_tpu_torch.raster.binning import TileBins, bin_gaussians, tile_grid_shape
@@ -63,6 +73,8 @@ from gsorb_slam_tpu_torch.raster.types import RasterConfig, RenderOutput
 from gsorb_slam_tpu_torch.slam import mapping as M
 from gsorb_slam_tpu_torch.slam import tracking as T
 from gsorb_slam_tpu_torch.slam import window as W
+from gsorb_slam_tpu_torch.slam.geometric import FrontendResult, GeometricFrontend
+from gsorb_slam_tpu_torch.slam.loop import LoopCloser
 from gsorb_slam_tpu_torch.splat.gaussians import (
     PARAM_NAMES,
     GaussianMap,
@@ -94,9 +106,11 @@ class _ForcedTrackResult:
 
 
 class System:
-    """The reference ``System`` facade for RGB-D, tracking by rendering from
-    the motion model (the reference's own fallback when ORB fails,
-    ``src/Tracking.cc:339-350``). Runs on ``device`` (the card by default)."""
+    """The reference ``System`` facade for RGB-D. ``frontend="render"``
+    tracks by rendering from the motion model (the reference's own fallback
+    when ORB fails, ``src/Tracking.cc:339-350``); ``frontend="orb"`` seeds
+    each frame with the geometric frontend's pose and matches. Runs on
+    ``device`` (the card by default)."""
 
     @staticmethod
     def default_raster_config(width: int = 320) -> RasterConfig:
@@ -123,17 +137,32 @@ class System:
         bins_ttl: int = 10,
         bins_refresh_per_frame: int = 3,
         seed: int = 0,
-        frontend: str = "render",
+        frontend: str = "render",  # "render" | "orb"
+        vocabulary=None,  # frontend.vocab.Vocabulary for loop closing
         use_mesh: bool = False,
         device: torch.device | str = "cuda",
     ):
-        if frontend != "render":
-            raise NotImplementedError(f"frontend={frontend!r}: only 'render' is ported")
+        if frontend not in ("render", "orb"):
+            raise ValueError(f"frontend={frontend!r}: 'render' or 'orb'")
         self.device = torch.device(device)
         self.cfg = config if isinstance(config, SystemConfig) else load_config(config)
         cc = self.cfg.camera
         self.cam = Camera(fx=cc.fx, fy=cc.fy, cx=cc.cx, cy=cc.cy, width=cc.width,
                           height=cc.height)
+        self.frontend_mode = frontend
+        self.fe: Optional[GeometricFrontend] = None
+        self.loop_closer: Optional[LoopCloser] = None
+        if frontend == "orb":
+            self.fe = self._new_frontend()
+            if vocabulary is None and self.cfg.debug.use_loop:
+                # System::System loads the vocabulary at start
+                # (src/System.cc:86-96): the packaged synthetic-domain one.
+                from gsorb_slam_tpu_torch.frontend.vocab import default_vocabulary
+
+                vocabulary = default_vocabulary()
+            if vocabulary is not None and self.cfg.debug.use_loop:
+                self.loop_closer = LoopCloser(vocabulary)
+        self._lost_streak = 0
         self.rcfg = raster or System.default_raster_config(self.cam.width)
         # The multi-device path, on only with more than one rank (the JAX
         # System's len(jax.devices()) > 1).
@@ -193,6 +222,14 @@ class System:
         self._bin_stats: list[tuple[torch.Tensor, torch.Tensor]] = []
         self._profiler: Optional[torch.profiler.profile] = None  # start_trace
         self._trace_dir = ""
+
+    def _new_frontend(self) -> GeometricFrontend:
+        cc = self.cfg.camera
+        return GeometricFrontend(
+            self.cam, self.cfg.orb, th_depth=cc.bf / cc.fx * cc.th_depth,
+            dist=Distortion(k1=cc.k1, k2=cc.k2, p1=cc.p1, p2=cc.p2, k3=cc.k3), bf=cc.bf,
+            device=self.device,
+        )
 
     # ------------------------------------------------------------ device ops
 
@@ -327,7 +364,8 @@ class System:
 
     # ------------------------------------------------------------- keyframes
 
-    def _create_keyframe(self, color, depth, T_cw: np.ndarray) -> W.KeyFrameMeta:
+    def _create_keyframe(self, color, depth, T_cw: np.ndarray,
+                         fe_kf_id: int = -1) -> W.KeyFrameMeta:
         kf_id = self._kf_created
         if kf_id >= self.max_keyframes:
             # Pool full: round-robin over the non-anchor slots, driven by the
@@ -339,7 +377,8 @@ class System:
             n_points=self.cfg.tracking.n_ref_points, rng=self.rng,
         )
         meta = W.KeyFrameMeta(kf_id=kf_id, frame_id=self.frame_id,
-                              T_cw=np.asarray(T_cw, np.float32), ref_points_cam=ref_pts)
+                              T_cw=np.asarray(T_cw, np.float32), ref_points_cam=ref_pts,
+                              fe_kf_id=fe_kf_id)
         self._kf_colors[kf_id] = torch.clamp(color * 255.0, 0, 255).to(torch.uint8)
         self._kf_depths[kf_id] = depth
         if kf_id < len(self.keyframes):
@@ -374,6 +413,71 @@ class System:
         for kf in self.keyframes:
             kf.bins_built_at = -(10**9)
 
+    # --------------------------------------------------------- orb frontend
+
+    def _sync_frontend_poses(self) -> None:
+        """Copy the frontend's BA-refined keyframe poses into the rendering
+        keyframes (the shared map: the window selection reads BA'd poses,
+        ``src/Render.cc:353-367``), linked by ``fe_kf_id`` (pool slots
+        recycle; frontend ids do not), and count local-BA touches."""
+        if self.fe is None:
+            return
+        adjusted = set(self.fe.last_adjusted or [])
+        by_fe_id = {fe_kf.kf_id: fe_kf for fe_kf in self.fe.keyframes}
+        for meta in self.keyframes:
+            fe_kf = by_fe_id.get(meta.fe_kf_id)
+            if fe_kf is None:
+                continue
+            meta.T_cw = np.asarray(fe_kf.T_cw, np.float32)
+            if fe_kf.kf_id in adjusted:
+                meta.rendered_num += 1
+
+    def _maybe_close_loop(self, fe_kf) -> None:
+        """``LoopClosing::Run`` per keyframe (``src/LoopClosing.cc``): add it
+        to the database, detect, verify and correct; then SearchAndFuse over
+        the query, the match and the query's covisible keyframes (``:590``)
+        and a global BA (``RunGlobalBundleAdjustment`` ``:648``); every
+        cached keyframe bin is stale after it."""
+        lc = self.loop_closer
+        if lc is None or self.fe is None:
+            return
+        lc.add_keyframe(fe_kf)
+        recent = {kf.kf_id for kf in self.fe.keyframes if fe_kf.kf_id - kf.kf_id < lc.min_gap}
+        cand = lc.detect(fe_kf, recent)
+        if cand is None:
+            return
+        # By kf_id, not list position: keyframe culling leaves holes.
+        match_kf = next((kf for kf in self.fe.keyframes if kf.kf_id == cand), None)
+        if match_kf is None:
+            return
+        T_corr = lc.verify(fe_kf, match_kf, self.fe, cam=self.cam)
+        if T_corr is None:
+            return
+        covis = [(fe_kf.kf_id, other_id, float(w))
+                 for other_id, w in self.fe.covisibility(fe_kf)[:10]]
+        corrected, point_corr = lc.correct(self.fe.keyframes, fe_kf.kf_id, cand, T_corr, covis,
+                                           device=self.device)
+        for kf in self.fe.keyframes:
+            kf.T_cw = corrected[kf.kf_id]
+        if point_corr is not None:
+            # 7-DoF closure: move each map point through its reference
+            # keyframe's old -> new world Sim3 (LoopClosing::CorrectLoop).
+            fe = self.fe
+            for p in np.nonzero(fe.pt_valid)[0]:
+                corr_mat = point_corr.get(int(fe.pt_first_kf[p]))
+                if corr_mat is not None:
+                    fe.pt_pos[p] = corr_mat[:3, :3] @ fe.pt_pos[p] + corr_mat[:3, 3]
+        by_id = {kf.kf_id: kf for kf in self.fe.keyframes}
+        for kid in dict.fromkeys([fe_kf.kf_id, cand] + [cid for _q, cid, _w in covis]):
+            kf = by_id.get(kid)
+            if kf is not None:
+                self.fe.fuse_duplicates(kf)
+        self.fe.last_adjusted = self.fe.global_ba()
+        self._sync_frontend_poses()
+        self._invalidate_all_bins()
+        lc.last_closed_kf = fe_kf.kf_id
+        self.loop_events.append((self.frame_id, fe_kf.kf_id, cand))
+
     # ----------------------------------------------------------------- track
 
     def track_rgbd(
@@ -382,30 +486,65 @@ class System:
         depth,
         timestamp: float = 0.0,
         matches: Optional[T.FeatureMatches] = None,
+        stereo_aux: Optional[dict] = None,
         gt_pose: Optional[np.ndarray] = None,
     ) -> np.ndarray:
         """Process one RGB-D frame (``rgb [H, W, 3]`` in [0, 1], ``depth
         [H, W]`` meters, numpy arrays or tensors); returns the estimated T_cw
         ``[4, 4]``.
 
-        ``gt_pose`` (evaluation harnesses only) skips the pose optimization
-        and runs keyframing, densify and mapping at the given T_cw."""
+        ``stereo_aux`` may carry the frame's ``feats`` (``ORBFeatures``,
+        skipping the extraction) and ``kp_depth`` (per-keypoint depth in
+        place of the depth-image lookup) for the ORB frontend. ``gt_pose``
+        (evaluation harnesses only) skips the pose optimization and runs
+        keyframing, densify and mapping at the given T_cw."""
         color = torch.as_tensor(rgb, dtype=torch.float32, device=self.device)
         d = torch.as_tensor(depth, dtype=torch.float32, device=self.device)
+        match_cap = self.fe.match_capacity if self.fe is not None else 8
         if matches is None:
-            matches = T.FeatureMatches.empty(8, device=self.device)
+            matches = T.FeatureMatches.empty(match_cap, device=self.device)
+        aux = stereo_aux or {}
+        fe_res = None
+        depth_np = None
+        t_fe = time.perf_counter()
+        if self.fe is not None:
+            depth_np = np.asarray(depth.cpu() if torch.is_tensor(depth) else depth, np.float32)
+            gray = 0.299 * color[..., 0] + 0.587 * color[..., 1] + 0.114 * color[..., 2]
+            if self.frame_id == 0:
+                feats0 = aux.get("feats")
+                if feats0 is None:
+                    feats0 = self.fe._extract(gray)
+                T0 = (np.eye(4, dtype=np.float32) if gt_pose is None
+                      else np.asarray(gt_pose, np.float32))
+                # Frame 0's keyframe belongs to the keyframe-chain timer.
+                self.timings["frontend"] += time.perf_counter() - t_fe
+                t_kf0 = time.perf_counter()
+                kf0 = self.fe.create_keyframe(feats0, depth_np, T0, frame_id=0,
+                                              kp_depth=aux.get("kp_depth"))
+                # The first keyframe enters the BoW database too.
+                if self.loop_closer is not None:
+                    self.loop_closer.add_keyframe(kf0)
+                self.timings["kf"] += time.perf_counter() - t_kf0
+                self.timings["n_kf"] += 1
+                t_fe = time.perf_counter()
+            else:
+                T_pred = (self.velocity @ self.last_T_cw).astype(np.float32)
+                fe_res = self.fe.process_frame(gray, T_pred, feats=aux.get("feats"),
+                                               kp_ur=aux.get("kp_ur"))
+        self.timings["frontend"] += time.perf_counter() - t_fe
         if self.frame_id == 0:
             T_cw = (np.eye(4, dtype=np.float32) if gt_pose is None
                     else np.asarray(gt_pose, np.float32))
-            self._initialize(color, d, T_cw)
+            self._initialize(color, d, T_cw, fe_kf_id=0 if self.fe is not None else -1)
         else:
-            T_cw = self._track_and_map(color, d, matches, forced_pose=gt_pose)
+            T_cw = self._track_and_map(color, d, matches, fe_res, depth_np,
+                                       kp_depth=aux.get("kp_depth"), forced_pose=gt_pose)
         self.last_T_cw = T_cw
         self.trajectory[-1].timestamp = timestamp
         self.frame_id += 1
         return T_cw
 
-    def _initialize(self, color, depth, T_cw: np.ndarray) -> None:
+    def _initialize(self, color, depth, T_cw: np.ndarray, fe_kf_id: int = -1) -> None:
         """Frame 0: dense seed and warm-up (``StereoInitialization`` ->
         ``Render::InitWorld``, ``src/Tracking.cc:741-830``)."""
         t0 = time.perf_counter()
@@ -418,24 +557,45 @@ class System:
             bins_indices=bins.indices[None], bins_counts=bins.counts[None], n_frames=1,
         )
         self._map(frames, self.cfg.mapping.init_iters, init_mode=True)
-        self._create_keyframe(color, depth, T_cw)
+        self._create_keyframe(color, depth, T_cw, fe_kf_id=fe_kf_id)
         self._refresh_kf_bins([self.last_kf.kf_id])
         self._sync()
         self.timings["map"] += time.perf_counter() - t0
         self.timings["n_map"] += 1
         self.trajectory.append(FrameRecord(self.frame_id, 0.0, T_cw, True, 0.0, 0))
 
-    def _track_and_map(self, color, depth, matches, forced_pose=None) -> np.ndarray:
+    def _track_and_map(self, color, depth, matches, fe_res: Optional[FrontendResult] = None,
+                       depth_np=None, kp_depth=None, forced_pose=None) -> np.ndarray:
         cfg = self.cfg
-        # Motion model (Tracking::TrackWithMotionModel's seed).
+        # Motion model (Tracking::TrackWithMotionModel's seed), replaced by
+        # the ORB-optimized pose when the geometric frontend succeeded
+        # (TrackWithMotionModel -> TrackLocalMapWithGaussian).
         T_init = (self.velocity @ self.last_T_cw).astype(np.float32)
+        n_track_iters = cfg.tracking.num_iters
+        if fe_res is not None:
+            if fe_res.T_orb is not None:
+                T_init = fe_res.T_orb.astype(np.float32)
+                matches = fe_res.matches
+                self._lost_streak = 0
+            else:
+                # ORB lost: the GS tracker takes over with the lost-mode budget
+                # (src/Tracking.cc:339-350); after 3 lost frames, relocalize.
+                n_track_iters = cfg.tracking.lost_num_iters
+                self._lost_streak += 1
+                if self._lost_streak >= 3:
+                    T_reloc = self.fe.relocalize(
+                        fe_res.feats, kfdb=self.loop_closer.db if self.loop_closer else None)
+                    if T_reloc is not None:
+                        T_init = T_reloc.astype(np.float32)
+                        self.velocity = np.eye(4, dtype=np.float32)
+                        self._lost_streak = 0
         t0 = time.perf_counter()
         if forced_pose is not None:
             T_cw = np.asarray(forced_pose, np.float32)
             res = _ForcedTrackResult(T_cw=T_cw)
         else:
             bins = None if self.mesh is not None else self._bin_track(T_init)
-            res = self._track(T_init, color, depth, matches, bins, cfg.tracking.num_iters)
+            res = self._track(T_init, color, depth, matches, bins, n_track_iters)
             T_cw = res.T_cw.cpu().numpy()
         if not np.isfinite(T_cw).all():
             # Diverged tracking: keep the motion-model prediction rather than
@@ -445,7 +605,8 @@ class System:
         self.timings["n_track"] += 1
         self.velocity = (T_cw @ np.linalg.inv(self.last_T_cw)).astype(np.float32)
 
-        # Keyframe decision: novel-view overlap or the frame gap.
+        # Keyframe decision: novel-view overlap, the frame gap or weak ORB
+        # tracking (fewer than 40 inliers, zero included).
         ref_kf = self.last_kf
         is_kf = False
         if ref_kf is not None:
@@ -453,10 +614,20 @@ class System:
                 ref_kf, T_cw, self.cam.fx, self.cam.fy, self.cam.cx, self.cam.cy,
                 self.cam.width, self.cam.height, cfg.tracking.overlap_threshold,
             )
-            is_kf = novel or (self.frame_id - self.last_kf_frame_id >= self.max_frames_between_kf)
+            weak_orb = fe_res is not None and fe_res.n_inliers < 40
+            is_kf = novel or weak_orb or (
+                self.frame_id - self.last_kf_frame_id >= self.max_frames_between_kf)
         if is_kf:
             t_kf = time.perf_counter()
-            self._create_keyframe(color, depth, T_cw)
+            fe_kf = None
+            if self.fe is not None and fe_res is not None:
+                fe_kf = self.fe.create_keyframe(fe_res.feats, depth_np, T_cw, self.frame_id,
+                                                kp_depth=kp_depth)
+            self._create_keyframe(color, depth, T_cw,
+                                  fe_kf_id=fe_kf.kf_id if fe_kf is not None else -1)
+            if fe_kf is not None:
+                self._sync_frontend_poses()
+                self._maybe_close_loop(fe_kf)
             self.timings["kf"] += time.perf_counter() - t_kf
             self.timings["n_kf"] += 1
 
@@ -519,9 +690,10 @@ class System:
         return T_cw
 
     def reset(self) -> None:
-        """``System::Reset`` (``src/System.cc``, ``Tracking::Reset``) for the
-        render frontend: drop the map, the keyframes, the trajectory, the
-        motion model and the run's statistics. The keyframe pools are zeroed
+        """``System::Reset`` (``src/System.cc``, ``Tracking::Reset``): drop the
+        map, the keyframes, the trajectory, the motion model, the run's
+        statistics and, with the ORB frontend, its map points, keyframes and
+        loop database (the vocabulary stays). The keyframe pools are zeroed
         in place (no new allocation). The config, camera, device, timings,
         the built kernels, the process group (``use_mesh``) and the random
         state survive, as in the JAX package (its key is not reset either):
@@ -541,9 +713,14 @@ class System:
         self.last_kf_frame_id = -(10**9)
         self.velocity = np.eye(4, dtype=np.float32)
         self.last_T_cw = np.eye(4, dtype=np.float32)
+        self._lost_streak = 0
         self.loop_events = []
         self.densify_added = []
         self._bin_stats = []
+        if self.fe is not None:
+            self.fe = self._new_frontend()
+        if self.loop_closer is not None:
+            self.loop_closer = LoopCloser(self.loop_closer.db.vocab)
 
     # ------------------------------------------------------------ checkpoint
 
@@ -577,7 +754,7 @@ class System:
                      fe_kf_id=kf.fe_kf_id)
                 for kf in self.keyframes
             ],
-            "frontend": None,
+            "frontend": self._frontend_state(),
             "trajectory": [
                 dict(frame_id=r.frame_id, timestamp=r.timestamp, T_cw=r.T_cw,
                      is_keyframe=r.is_keyframe, track_loss=r.track_loss,
@@ -604,8 +781,6 @@ class System:
         )
         with open(os.path.join(path, "state.pkl"), "rb") as f:
             meta = pickle.load(f)
-        if meta.get("frontend") is not None:
-            raise NotImplementedError("the checkpoint holds ORB frontend state (not ported)")
         self.frame_id = meta["frame_id"]
         self.last_kf_frame_id = meta["last_kf_frame_id"]
         self.velocity = np.asarray(meta["velocity"], np.float32)
@@ -633,6 +808,49 @@ class System:
         self._kf_colors = torch.as_tensor(pools["colors"], device=self.device)
         self._kf_depths = torch.as_tensor(pools["depths"], device=self.device)
         self._invalidate_all_bins()
+        self._restore_frontend(meta.get("frontend"))
+
+    def _frontend_state(self) -> Optional[dict]:
+        """The geometric frontend's and the loop closer's state in the JAX
+        package's checkpoint format (numpy arrays, descriptors as
+        ``np.uint32``), or None without the ORB frontend."""
+        fe = self.fe
+        if fe is None:
+            return None
+        n = fe.n_points
+
+        def feats_np(f: ORBFeatures) -> dict:
+            out = {k: (v.detach().cpu().numpy() if v is not None else None)
+                   for k, v in f._asdict().items()}
+            out["descriptors"] = out["descriptors"].view(np.uint32)
+            return out
+
+        state = {
+            "n_points": n,
+            **{k: getattr(fe, k)[:n].copy() for k in ("pt_pos", "pt_desc", "pt_valid",
+                                                     "pt_visible", "pt_found", "pt_first_kf")},
+            "kf_counter": fe.kf_counter,
+            "keyframes": [
+                dict(kf_id=kf.kf_id, frame_id=kf.frame_id, feats=feats_np(kf.feats),
+                     point_ids=kf.point_ids.copy(), T_cw=kf.T_cw.copy())
+                for kf in fe.keyframes
+            ],
+        }
+        if self.loop_closer is not None:
+            db = self.loop_closer.db
+            state["loop_db"] = {
+                "inverted": {w: sorted(s) for w, s in db.inverted.items()},
+                "bows": db.bows,
+                "consistency": self.loop_closer.consistency,
+            }
+        return state
+
+    def _restore_frontend(self, state: Optional[dict]) -> None:
+        """Load :meth:`_frontend_state`'s dict (this package's or the JAX
+        package's) into the frontend and the loop closer."""
+        if self.fe is None or state is None:
+            return
+        frontend_state_from_numpy(state, self.fe, self.loop_closer)
 
     # ------------------------------------------------------------------ eval
 
@@ -642,6 +860,17 @@ class System:
     def render_view(self, T_cw: np.ndarray) -> RenderOutput:
         """Render any pose (the ``Render::Viwer`` hook, ``src/Render.cc:179-193``)."""
         return self._render(T_cw, self._bin(T_cw))
+
+    # --------------------------------------------------------- other sensors
+
+    def track_stereo(self, left, right, timestamp: float = 0.0) -> np.ndarray:
+        """The stereo entry point (``System::TrackStereo``): not ported yet."""
+        raise NotImplementedError("track_stereo: the stereo entry point is not ported yet")
+
+    def track_monocular(self, image, timestamp: float = 0.0):
+        """The monocular entry point (``System::TrackMonocular``): not ported
+        yet."""
+        raise NotImplementedError("track_monocular: the monocular entry point is not ported yet")
 
     # --------------------------------------------------------- observability
 
@@ -671,7 +900,8 @@ class System:
     def shutdown_summary(self) -> dict:
         """The timing and statistics contract of ``SavePlyAndPrintTime``
         (``src/Render.cc:167-174``). ``compile_s`` is the kernel build time
-        during this System's life (its first frame pays it)."""
+        during this System's life (its first frame pays it); ``phase_*`` are
+        the ORB frontend's wall seconds per phase."""
         t = self.timings
         return {
             "total_gaussians": int(self.gm.n_active()),
@@ -691,6 +921,9 @@ class System:
             "densify_added_max": int(np.max(self.densify_added)) if self.densify_added else 0,
             "capacity_frac": float(int(self.gm.count) / self.gm.capacity),
             **self._bin_truncation_stats(),
+            # The ORB frontend's wall seconds per phase (fe.* / kf.*).
+            **({f"phase_{k}": round(v, 3) for k, v in self.fe.timings.items()}
+               if self.fe is not None else {}),
         }
 
     def _bin_truncation_stats(self) -> dict:

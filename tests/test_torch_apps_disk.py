@@ -3,9 +3,10 @@
 ``run_rgbd`` with the mapping draws replayed (poses and both trajectory
 files at ``tests/test_torch_system_parity.py``'s tolerances), ``eval_ate`` (to
 1e-9), ``replay`` (PSNR within 0.05 dB), ``run_benchmark --frontend render
---no-distortion`` (its ``result.txt`` keys against the JAX source's
-literal key set), the raises that wait for the ORB slice and those of the
-TPU kernel layout flags."""
+--no-distortion`` and ``run_benchmark`` with its defaults (ORB frontend,
+TUM1's distortion) and ``--loop`` (their ``result.txt`` keys against the
+JAX source's literal key set), ``run_rgbd --frontend orb`` and ``--vocab``,
+and the raises of the TPU kernel layout flags."""
 
 import ast
 import dataclasses
@@ -31,6 +32,7 @@ from gsorb_slam_tpu_torch.core import config as C
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.eval import ate as TA
 from gsorb_slam_tpu_torch.eval import trajectory as TT
+from gsorb_slam_tpu_torch.frontend import vocab as TV
 from gsorb_slam_tpu_torch.slam import dataset as D
 from gsorb_slam_tpu_torch.slam import system as S
 
@@ -227,19 +229,63 @@ def test_run_benchmark_render_no_distortion(tmp_path, small_systems):
     assert len((out / "frames.jsonl").read_text().splitlines()) == 3
     assert len(TT.load_tum(str(out / "CameraTrajectory.txt"))) == 3
 
-    # What waits for the ORB slice raises by name.
-    with pytest.raises(NotImplementedError, match="frontend orb"):
-        run_benchmark.main(argv + ["--no-distortion"])
-    with pytest.raises(NotImplementedError, match="loop"):
-        run_benchmark.main(argv + ["--frontend", "render", "--no-distortion", "--loop"])
-    with pytest.raises(NotImplementedError, match="distortion"):
-        run_benchmark.main(argv + ["--frontend", "render"])
 
 
-def test_run_rgbd_orb_and_vocab_raise(disk, tmp_path):
-    for extra in (["--frontend", "orb"], ["--vocab", "ORBvoc.txt"]):
-        with pytest.raises(NotImplementedError, match="ORB slice"):
-            _run(run_rgbd.main, disk, "tum", tmp_path / "out", *extra)
+def _record_systems(monkeypatch) -> list:
+    """Every System the apps make from here on is appended to the list."""
+    made = []
+    base = S.System
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(S, "System", Recorded)
+    return made
+
+
+def test_run_benchmark_defaults_orb_distortion_loop(tmp_path, small_systems, monkeypatch):
+    """``run_benchmark`` with the JAX package's defaults (the ORB frontend,
+    TUM1's distortion warped into the sequence) and ``--loop``."""
+    out = tmp_path / "bench"
+    made = _record_systems(monkeypatch)
+    argv = ["--frames", "3", "--width", "64", "--height", "48", "--track-iters", "10",
+            "--map-iters", "5", "--max-gaussians", "16384", "--cache", str(tmp_path / "cache"),
+            "--out", str(out), "--cpu", "--loop"]
+    res = run_benchmark.main(argv)
+    line = json.loads((out / "result.txt").read_text().splitlines()[-1])
+    phases = {k for k in line if k.startswith("phase_")}
+    assert phases and "phase_fe.total" in phases
+    assert set(line) == _jax_result_keys() | phases == set(res)
+    assert line["frontend"] == "orb" and line["distortion"] is True and line["frames"] == 3
+    assert np.isfinite(line["ate_rmse_m"]) and np.isfinite(line["psnr_db"])
+    assert line["loop_events"] == 0
+    (sys_,) = made
+    assert sys_.fe is not None and sys_.loop_closer is not None
+    assert not sys_.fe.dist.is_zero() and sys_.cfg.camera.k1 == D.TUMLikeDataset.DIST[0]
+
+
+def test_run_rgbd_orb_and_vocab_raise(disk, tmp_path, small_systems, monkeypatch):
+    """``run_rgbd --frontend orb`` on the tiny TUM layout, with the packaged
+    vocabulary and with ``--vocab`` (a copy of it read from its file): both
+    run to the end and write the trajectory and the result."""
+    made = _record_systems(monkeypatch)
+
+    for i, extra in enumerate((["--frontend", "orb"],
+                               ["--frontend", "orb", "--vocab", TV.DEFAULT_VOCABULARY_PATH])):
+        out = tmp_path / f"out{i}"
+        assert _run(run_rgbd.main, disk, "tum", out, *extra) == 0
+        assert len(TT.load_tum(str(out / "CameraTrajectory_TUM.txt"))) == 3
+        res = json.loads((out / "result.txt").read_text().splitlines()[-1])
+        assert res["n_frames"] == 3 and np.isfinite(res["ate_rmse"])
+        assert any(k.startswith("phase_") for k in res)
+        sys_ = made[-1]
+        assert sys_.frontend_mode == "orb" and sys_.loop_closer is not None
+        assert sys_.timings["frontend"] > 0
+    voc_default, voc_file = (m.loop_closer.db.vocab for m in made)
+    assert voc_file is not voc_default
+    np.testing.assert_array_equal(voc_file.node_desc, voc_default.node_desc)
 
 
 @pytest.mark.parametrize("flag", ["--blend-bf16", "--elem-bf16", "--no-elem-bf16",

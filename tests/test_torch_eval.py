@@ -6,8 +6,8 @@ Tolerances:
   another order);
 - ATE, the TUM trajectory and the PLY: the same numbers and byte-identical
   files (both are numpy code);
-- ``SyntheticDataset`` and ``TUMLikeDataset(apply_distortion=False)``:
-  poses exact; colors 2e-3 and depths 5e-3 abs (K3's tolerances: the JAX
+- ``SyntheticDataset`` and ``TUMLikeDataset`` (with and without TUM1's
+  distortion warped in): poses exact; colors 2e-3 and depths 5e-3 abs (K3's tolerances: the JAX
   package renders them with XLA, the port with the plain blend), except at
   pixels where a rendered alpha sits at the 0.5 depth gate within rounding
   (the depth there is 0 on one side): at most 0.1% of them.
@@ -141,5 +141,9 @@ def test_tumlike_dataset_matches_jax():
     assert port.cam == Camera(fx=ref.cam.fx, fy=ref.cam.fy, cx=ref.cam.cx, cy=ref.cam.cy,
                               width=64, height=48)
     _check_frames(port, ref)
-    with pytest.raises(NotImplementedError):
-        D.TUMLikeDataset(n_frames=2, width=64, height=48, device="cpu")
+    # TUM1's distortion warped into the frames (the default), as the JAX
+    # package warps it.
+    kw.update(n_frames=2, apply_distortion=True)
+    ref_d, port_d = JD.TUMLikeDataset(**kw), D.TUMLikeDataset(**kw, device="cpu")
+    _check_frames(port_d, ref_d)
+    assert not np.array_equal(port_d[0].rgb, port[0].rgb)

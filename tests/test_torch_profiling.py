@@ -12,8 +12,9 @@ every profiler of ``gsorb_slam_tpu_torch.profiling`` end to end with
   blended depth, so its color loss and gradients are compared with the
   plain version at ``use_sur=False`` and its depth loss at ``use_sur=True``.
 - ``truncation_weight_report``: every field within 1e-5.
-- Each profiler's ``main(["--cpu", ...])`` at 64x48 returns finite numbers
-  under its keys. A CPU run times PyTorch's CPU kernels, so those numbers
+- Each profiler's ``main(["--cpu", ...])`` at 64x48 (160x120 for
+  ``profile_frontend``: ORB needs 32-px cells inside its 19-px border)
+  returns finite numbers under its keys. A CPU run times PyTorch's CPU kernels, so those numbers
   say nothing of the card; the tests check only that they exist.
 """
 
@@ -245,6 +246,10 @@ PROFILERS = [
       "--max-gaussians", "8192", "--splat-spacing", "0.2", "--ablate", "base,lr2"],
      lambda r: [v for a in r["ablations"].values() for v in (a["psnr"], a["depth_l1"],
                                                              a["wall_s"])]),
+    ("profile_frontend",
+     ["--cpu", "--frames", "3", "--width", "160", "--height", "120", "--splat-spacing", "0.1",
+      "--top", "3"],
+     lambda r: [r["ms_per_frame"], r["first_extract_s"], *r["phase_ms_per_frame"].values()]),
 ]
 
 

@@ -112,5 +112,8 @@ def test_run_rgbd_cpu(tmp_path, monkeypatch):
     result = json.loads((out / "result.txt").read_text().splitlines()[-1])
     assert result["n_frames"] == 3 and result["n_eval_frames"] == 3
     assert result["ate_rmse"] < 0.02 and result["psnr"] > 15.0
-    with pytest.raises(NotImplementedError, match="ORB"):
-        run_rgbd.main(["--config", str(cfg), "--cpu", "--frontend", "orb", "--out", str(out)])
+    # The ORB frontend runs too (tests/test_torch_apps_disk.py holds it on disk data).
+    out_orb = tmp_path / "orb"
+    assert run_rgbd.main(["--config", str(cfg), "--cpu", "--frontend", "orb", "--max-frames", "2",
+                          "--out", str(out_orb), "--no-eval"]) == 0
+    assert len((out_orb / "CameraTrajectory.txt").read_text().splitlines()) == 2
