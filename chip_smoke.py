@@ -75,7 +75,7 @@ Phases (any failed check makes the exit code non-zero):
     evaluation's renders, K7 = K8 = 0; frame times, and one more frame profiled; a second System
     over the first 4 frames bitwise equal;
 13. the System with ``exact_stop=True`` and with ``paired=True`` over the
-    first 5 frames: ATE < 2 cm, K7 (K8) = the tracking iterations, K1 = 0;
+    first 4 frames: ATE < 2 cm, K7 (K8) = the tracking iterations, K1 = 0;
 14. K6 (the per-tile blend backward) against its plain version on phase 2's
     render bins under both stop rules, with K3's residuals (visit words
     included): a seeded random cotangent on rows 0-4 and the final T with
@@ -107,24 +107,24 @@ Phases (any failed check makes the exit code non-zero):
     ``profile_map_full`` (20 mapping iterations per variant, 2 timed calls),
     ``profile_map_iter``, ``profile_raster``, ``profile_fused``,
     ``profile_paired_parts``, ``profile_gather`` (their defaults) and
-    ``profile_mapping_quality`` (3 QVGA frames per ablation, the four
+    ``profile_mapping_quality`` (2 QVGA frames per ablation, the four
     ablations); each must return finite numbers, and each prints its lines;
-19. the disk path on phase 12's sequence: its first 8 frames written in the
+19. the disk path on phase 12's sequence: its first 5 frames written in the
     TUM layout (``export_tum_format``: 8-bit rgb PNG, 16-bit depth PNG,
     jittered timestamps, ``groundtruth.txt``) and read back through
-    ``open_dataset("tum", ...)``: 8 pairs associated, rgb equal to its
+    ``open_dataset("tum", ...)``: 5 pairs associated, rgb equal to its
     8-bit export (within one quantum of the generated frame), depth within
     1.5 / 5000 m where valid, poses within 1e-5, the image codec (cv2, else
     Pillow) and its read time per frame;
     ``apps.run_rgbd.main`` over the directory with TUM1 as a ``.json``
-    file (``--type tum --max-frames 8 --eval-stride 1``): exit code 0, ATE
+    file (``--type tum --max-frames 5 --eval-stride 1``): exit code 0, ATE
     < 2 cm and PSNR >= 18 dB from its ``result.txt``, K1 = K2f = K2b = the
-    tracking iterations, K4 = K5 = the mapping iterations, K3 = 15, the
+    tracking iterations, K4 = K5 = the mapping iterations, K3 = 9, the
     trajectory and the PLY written; ``apps.eval_ate`` on the two trajectory
     files within 1e-5 m of ``result.txt``'s ATE; ``apps.replay`` of the PLY
-    along the trajectory (``--stride 1``): PSNR >= 18 dB, K3 = 8; 2 frames
+    along the trajectory (``--stride 1``): PSNR >= 18 dB, K3 = 5; 2 frames
     round-tripped through the Replica and ScanNet layouts (JPEG color); ``apps.run_benchmark.main`` once with
-    ``--frontend render --no-distortion --frames 4`` (finite results, no
+    ``--frontend render --no-distortion --frames 3`` (finite results, no
     instance dropped at the oracle capacity);
 20. the render path's leftovers on phase 12's first 3 frames: a System with
     ``initScalarMethod`` 0 with frame 1 inside ``start_trace`` /
@@ -146,18 +146,44 @@ Phases (any failed check makes the exit code non-zero):
     (no atomics); wall times of the extraction, the Hamming matrix,
     ``search_by_projection``, the pose optimization and the local BA;
 22. ``System(frontend="orb")`` with TUM1 (its distortion, ``useLoop`` on,
-    the packaged vocabulary) over the distorted sequence's first 10 frames:
+    the packaged vocabulary) over the distorted sequence's first 6 frames:
     ATE < 2 cm, PSNR >= 18 dB, launches K1 = K2f = K2b = the tracking
-    iterations, K4 = K5 = init + 9 x 100, K3 = 9, K7 = K8 = 0; a 4-frame
+    iterations, K4 = K5 = init + 5 x 100, K3 = 5, K7 = K8 = 0; a 4-frame
     rerun bitwise equal (poses, splat map, map points); the median frame
     split into ``frontend``, ``kf``, ``track`` and ``map``, and
     ``GeometricFrontend.timings`` per phase;
 23. loop closing on ``tests/test_loop_e2e.py``'s scene (96x72, 16 frames,
     poses injected under accumulating drift): the loop fires and the late
     keyframes end closer to the ground truth than 0.7x the injected drift;
-    the closure's time (``verify`` + ``correct`` + fuse + global BA).
+    the closure's time (``verify`` + ``correct`` + fuse + global BA);
+24. ``System(frontend="orb").track_stereo`` with TUM1 (distortion zero: the
+    pairs are rectified; ``useLoop`` on) over the first 6 of 30 rectified VGA
+    pairs of one generated scene (20,000 splats, baseline bf / fx = 7.73
+    cm): stereo matches on every frame, launches K1 = K2f = K2b = the
+    tracking iterations, K4 = K5 = 200 + 5 x 100, K3 = 5, K7 = K8 = 0; ATE <
+    5 cm and PSNR >= 18 dB against the left views and the SGBM depth; the
+    median frame split into ``frontend``, ``kf``, ``track``, ``map`` and the
+    rest (SGBM, extraction, row matching); a 4-frame rerun bitwise equal;
+25. ``System(frontend="orb").track_monocular`` with TUM1's camera and ORB
+    settings and the JAX app's bootstrap gates (40 / 30) over the VGA
+    version of ``configs/synthetic_mono.yaml``'s scene (12 frames): the
+    bootstrap, a pose on every later frame, map points and splats; LOST
+    after 2 blank frames, relocalized after a jump back to the first frames
+    after the bootstrap; a short run lost with a young map resets itself
+    and bootstraps again; no kernel launched over the phase; a rerun
+    bitwise equal; the frame times;
+26. ``compute_stereo_matches`` on phase 24's last VGA pair and
+    ``initialize_monocular`` on phase 25's bootstrap, on the card against
+    the CPU (stereo matches equal; the same model and inlier mask, T_cw2
+    within 1e-4, two card runs bitwise equal), their wall times and SGBM's;
+27. ``apps.run_stereo --type kitti`` over a KITTI layout written from phase
+    24's first 3 pairs, ``apps.run_mono --type tum`` over phase 19's TUM
+    directory and ``apps.run_mono --type synthetic`` with
+    ``configs/synthetic_mono.yaml`` (as ``.json``, 8 frames): exit 0, both
+    trajectory files and ``result.txt`` with ``frames_total``.
 Phase 18 also runs ``profile_frontend`` (6 frames at 320x240).
-It prints a ``kernels`` JSON line, the card's ``nvidia-smi`` line, and last
+It prints a ``kernels`` JSON line (each kernel's launches on its main path
+plus the stereo System's), the card's ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -190,11 +216,11 @@ N_WINDOW = 4  # mapping window: the identity frame and 3 poses 2 cm / 2 deg away
 # Phases 12-13: the System's run lengths and the generated sequence's length.
 SYS_FRAMES = 10
 SYS_RERUN_FRAMES = 4
-SYS_KERNEL_FRAMES = 5
+SYS_KERNEL_FRAMES = 4
 SYS_SEQ_FRAMES = 100
 # Phase 19: the frames written to disk, and run_benchmark's sequence length.
-DISK_FRAMES = 8
-BENCH_FRAMES = 4
+DISK_FRAMES = 5
+BENCH_FRAMES = 3
 # configs/tum1.yaml (the reference's Examples/RGB-D/tum/TUM1.yaml) as a dict.
 TUM1 = {
     "Dataset": {"name": "tum_desk1", "type": "tum",
@@ -1411,7 +1437,7 @@ def phase_profilers(torch, checks) -> dict:
         "profile_fused": [],
         "profile_paired_parts": [],
         "profile_gather": [],
-        "profile_mapping_quality": ["--frames", "3", "--ablate", "base,freshbins,lr2,lrhalf"],
+        "profile_mapping_quality": ["--frames", "2", "--ablate", "base,freshbins,lr2,lrhalf"],
         "profile_frontend": ["--frames", "6"],
     }
 
@@ -1443,6 +1469,7 @@ def phase_profilers(torch, checks) -> dict:
 # ---------------------------------------------------------------- ORB slice
 
 ORB_FRAMES = 6  # phase 21: frames the frontend runs over (6 keyframes: one local BA of 6)
+ORB_SYS_FRAMES = 6  # phase 22: the ORB System's run length
 # Phase 23: the loop-closing scene of tests/test_loop_e2e.py.
 LOOP_CAM = dict(fx=90.0, fy=90.0, cx=48.0, cy=36.0, width=96, height=72)
 
@@ -1501,7 +1528,7 @@ def phase_frontend(torch, checks, dev) -> dict:
     t0 = time.perf_counter()
     ds = TUMLikeDataset(n_frames=SYS_SEQ_FRAMES, width=width, height=height,
                         apply_distortion=True, noise=True, seed=0, device=dev)
-    frames = [ds[i] for i in range(max(SYS_FRAMES, ORB_FRAMES))]
+    frames = [ds[i] for i in range(max(ORB_SYS_FRAMES, ORB_FRAMES))]
     print(f"# phase 21: distorted TUM-like sequence of {SYS_SEQ_FRAMES} frames generated in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     ocfg = ORBConfig()
@@ -1619,7 +1646,7 @@ def phase_orb_system(torch, checks, dev, frames) -> dict:
 
     torch.cuda.synchronize()
     _build.reset_launches()
-    system, rows, snap = run(SYS_FRAMES, snapshot_at=SYS_RERUN_FRAMES)
+    system, rows, snap = run(ORB_SYS_FRAMES, snapshot_at=SYS_RERUN_FRAMES)
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     checks.record("ORB System has a loop closer with the packaged vocabulary", 0.0, 0.0,
@@ -1627,17 +1654,17 @@ def phase_orb_system(torch, checks, dev, frames) -> dict:
                   and not system.fe.dist.is_zero())
     mcfg = system.cfg.mapping
     n_track = sum(r.track_iters for r in system.trajectory[1:])
-    n_map = mcfg.init_iters + mcfg.num_iters * (SYS_FRAMES - 1)
+    n_map = mcfg.init_iters + mcfg.num_iters * (ORB_SYS_FRAMES - 1)
     print(f"# ORB System launches: {json.dumps(launches)}", flush=True)
     for name, want in (("fused_track_fast", n_track), ("preprocess_fwd", n_track),
                        ("preprocess_bwd", n_track), ("blend_flat_fwd", n_map),
                        ("blend_flat_bwd", n_map), ("fused_track_exact", 0), ("paired_track", 0)):
         checks.record(f"ORB System {name} launches == {want}", launches[name], want,
                       ok=launches[name] == want)
-    checks.record(f"ORB System blend_forward launches == {SYS_FRAMES - 1}",
-                  launches["blend_forward"], SYS_FRAMES - 1,
-                  ok=launches["blend_forward"] == SYS_FRAMES - 1)
-    result = evaluate_sequence(system, frames[:SYS_FRAMES], stride=1)
+    checks.record(f"ORB System blend_forward launches == {ORB_SYS_FRAMES - 1}",
+                  launches["blend_forward"], ORB_SYS_FRAMES - 1,
+                  ok=launches["blend_forward"] == ORB_SYS_FRAMES - 1)
+    result = evaluate_sequence(system, frames[:ORB_SYS_FRAMES], stride=1)
     print(f"# ORB System evaluation: {json.dumps(result)}", flush=True)
     checks.record("ORB System ATE RMSE (m, Horn-aligned)", result["ate_rmse"], 0.02)
     checks.record("ORB System PSNR (dB, at least)", result["psnr"], 18.0,
@@ -1654,11 +1681,11 @@ def phase_orb_system(torch, checks, dev, frames) -> dict:
              "frame0_s": float(rows[0, 0]),
              "ate_rmse_m": result["ate_rmse"], "psnr_db": result["psnr"]}
     split["frontend_share"] = med["frontend"] / split["frame_s_median"]
-    print(f"# ORB System frame split (medians over frames 1-{SYS_FRAMES - 1}): "
+    print(f"# ORB System frame split (medians over frames 1-{ORB_SYS_FRAMES - 1}): "
           f"{json.dumps(split)}", flush=True)
     print(f"# ORB System frame rows (s: wall, {', '.join(phases)}): "
           f"{json.dumps([[round(v, 4) for v in r] for r in rows.tolist()])}", flush=True)
-    n_fe = SYS_FRAMES - 1
+    n_fe = ORB_SYS_FRAMES - 1
     print(f"# GeometricFrontend.timings (ms per frame over {n_fe} frames): "
           f"{json.dumps({k: round(v / n_fe * 1e3, 3) for k, v in fe.timings.items()})}",
           flush=True)
@@ -1774,6 +1801,428 @@ def phase_loop(torch, checks, dev) -> dict:
     print(f"# loop closure time (s, verify + correct + fuse + global BA): {json.dumps(out)}",
           flush=True)
     return out
+
+# ------------------------------------------------------- stereo and mono
+
+# Phase 24: rectified VGA pairs of one generated scene (TUM1's camera, the
+# baseline bf / fx), the System over its first frames, then a rerun.
+STEREO_SEQ_FRAMES = 30
+STEREO_FRAMES = 6
+STEREO_RERUN_FRAMES = 4
+STEREO_SPLATS = 20_000
+# Phase 25: the VGA version of configs/synthetic_mono.yaml's scene; the
+# reruns go this many frames past the bootstrap.
+MONO_FRAMES = 12
+MONO_RERUN_FRAMES = 3
+# Phase 27: the stereo frames written in the KITTI layout, and run_mono's
+# synthetic run length.
+KITTI_FRAMES = 3
+MONO_APP_FRAMES = 8
+# TUM1 for a rectified pair or an undistorted generated sequence: the lens
+# distortion is zero (rectification removes it; the generators render none).
+TUM1_RECT = {**TUM1, "Camera.k1": 0.0, "Camera.k2": 0.0, "Camera.p1": 0.0,
+             "Camera.p2": 0.0, "Camera.k3": 0.0}
+# configs/synthetic_mono.yaml as a dict (the card's machine has no PyYAML).
+SYNTH_MONO = {
+    "Dataset": {"name": "synthetic_mono_smoke", "type": "synthetic", "path": ""},
+    "Camera": {"width": 160, "height": 120, "fx": 130.0, "fy": 130.0, "cx": 80.0, "cy": 60.0,
+               "fps": 10.0},
+    "ORBextractor": {"nFeatures": 400, "nLevels": 3},
+    "Mapping": {"numIters": 15, "maxGaussians": 16384},
+    "Tracking": {"numIters": 20},
+    "Evalution": {"enable": True, "savePly": False, "saveRootPath": "experiments"},
+}
+
+
+def _tum1_camera(cfg):
+    from gsorb_slam_tpu_torch.core.camera import Camera
+
+    cc = cfg.camera
+    return Camera(fx=cc.fx, fy=cc.fy, cx=cc.cx, cy=cc.cy, width=cc.width, height=cc.height)
+
+
+def phase_stereo_system(torch, checks, dev) -> dict:
+    """Phase 24: ``System(frontend="orb").track_stereo`` with TUM1 (loop
+    closing on the packaged vocabulary) over the first frames of rectified
+    VGA pairs: SGBM depth on the host, ORB matches along the rows, then the
+    RGB-D path (K1, K2f, K2b, K3, K4, K5)."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.eval.evaluate import evaluate_sequence
+    from gsorb_slam_tpu_torch.interop import system_config_from_dict
+    from gsorb_slam_tpu_torch.slam import system as SM
+    from gsorb_slam_tpu_torch.slam.dataset import RGBDFrame, StereoSyntheticDataset
+    from gsorb_slam_tpu_torch.splat.gaussians import PARAM_NAMES
+
+    cfg = system_config_from_dict(TUM1_RECT)
+    cc = cfg.camera
+    t0 = time.perf_counter()
+    ds = StereoSyntheticDataset(_tum1_camera(cfg), cc.bf / cc.fx, n_frames=STEREO_SEQ_FRAMES,
+                                n_splats=STEREO_SPLATS, seed=0, motion_scale=0.3, device=dev)
+    frames = [ds[i] for i in range(STEREO_FRAMES)]
+    moves = [np.linalg.norm(np.linalg.inv(b.gt_T_cw)[:3, 3] - np.linalg.inv(a.gt_T_cw)[:3, 3])
+             for a, b in zip(frames[:-1], frames[1:])]
+    print(f"# phase 24: {STEREO_SEQ_FRAMES} rectified {cc.width}x{cc.height} pairs of "
+          f"{STEREO_SPLATS} splats, baseline {cc.bf / cc.fx * 100:.2f} cm (bf {cc.bf}), "
+          f"generated in {time.perf_counter() - t0:.2f} s; the first {STEREO_FRAMES} move "
+          f"{np.mean(moves) * 100:.2f} cm per frame", flush=True)
+    raster = SM.System.default_raster_config(cc.width)
+    phases = ("frontend", "kf", "track", "map")
+
+    def run(n, aux=None, snapshot_at=None):
+        system = SM.System(cfg, raster=raster, seed=0, device=dev, frontend="orb")
+        if aux is not None:
+            track = system.track_rgbd
+
+            def spy(rgb, depth, timestamp=0.0, stereo_aux=None, **kw):
+                aux.append((stereo_aux, depth))
+                return track(rgb, depth, timestamp, stereo_aux=stereo_aux, **kw)
+
+            system.track_rgbd = spy
+        rows, snap = [], None
+        for i, fr in enumerate(frames[:n]):
+            tm = dict(system.timings)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            system.track_stereo(fr.left, fr.right, fr.timestamp)
+            torch.cuda.synchronize()
+            rows.append([time.perf_counter() - t1]
+                        + [system.timings[k] - tm[k] for k in phases])
+            if i + 1 == snapshot_at:
+                snap = ({k: getattr(system.gm, k).clone() for k in PARAM_NAMES},
+                        system.fe.pt_pos.copy())
+        return system, np.asarray(rows), snap
+
+    aux = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with _Capture(SM, "compute_stereo_matches") as csm:
+        system, rows, snap = run(STEREO_FRAMES, aux, snapshot_at=STEREO_RERUN_FRAMES)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    n_valid = [int((a["kp_ur"] >= 0).sum()) if a is not None else 0 for a, _ in aux]
+    print(f"# stereo System: valid stereo matches per frame {n_valid} of "
+          f"{[int(a['feats'].valid.sum()) if a is not None else 0 for a, _ in aux]} keypoints; "
+          f"SGBM depth on {[round(float((d > 0).mean()), 4) for _, d in aux]} of the pixels; "
+          f"launches {json.dumps(launches)}", flush=True)
+    checks.record("stereo System: stereo_aux on every frame with valid stereo matches", 0.0, 0.0,
+                  ok=len(aux) == STEREO_FRAMES and min(n_valid) > 0
+                  and csm.calls == STEREO_FRAMES)
+    mcfg = system.cfg.mapping
+    n_track = sum(r.track_iters for r in system.trajectory[1:])
+    n_map = mcfg.init_iters + mcfg.num_iters * (STEREO_FRAMES - 1)
+    for name, want in (("fused_track_fast", n_track), ("preprocess_fwd", n_track),
+                       ("preprocess_bwd", n_track), ("blend_flat_fwd", n_map),
+                       ("blend_flat_bwd", n_map), ("blend_forward", STEREO_FRAMES - 1),
+                       ("fused_track_exact", 0), ("paired_track", 0)):
+        checks.record(f"stereo System {name} launches == {want}", launches[name], want,
+                      ok=launches[name] == want and (want > 0 or name in ("fused_track_exact",
+                                                                          "paired_track")))
+    # Scored as the RGB-D System is, against its sensor images: the left
+    # view and the SGBM depth (its mask leaves out the pixels without one).
+    seen = [RGBDFrame(fr.timestamp, fr.left, d, fr.gt_T_cw) for fr, (_, d) in zip(frames, aux)]
+    result = evaluate_sequence(system, seen, stride=1)
+    truth = evaluate_sequence(system, [ds._left[i] for i in range(STEREO_FRAMES)], stride=1)
+    print(f"# stereo System evaluation (against the left views and the SGBM depth): "
+          f"{json.dumps(result)}; against the rendered depth, every pixel: PSNR "
+          f"{truth['psnr']:.3f} dB, depth L1 {truth['depth_l1']:.5f} m", flush=True)
+    checks.record("stereo System ATE RMSE (m, Horn-aligned)", result["ate_rmse"], 0.05)
+    checks.record("stereo System PSNR (dB, at least)", result["psnr"], 18.0,
+                  ok=result["psnr"] >= 18.0)
+    print(f"# stereo System: keyframes {[r.frame_id for r in system.trajectory if r.is_keyframe]}; "
+          f"tracking iterations {[r.track_iters for r in system.trajectory]}; map points "
+          f"{int(system.fe.pt_valid.sum())}; splats {int(system.gm.n_active())}", flush=True)
+    tracked = rows[1:]
+    med = {k: float(np.median(tracked[:, i + 1])) for i, k in enumerate(phases)}
+    split = {"frame_s_median": float(np.median(tracked[:, 0])),
+             **{f"{k}_s": v for k, v in med.items()},
+             "rest_s": float(np.median(tracked[:, 0] - tracked[:, 1:].sum(1))),
+             "frame0_s": float(rows[0, 0]), "ate_rmse_m": result["ate_rmse"],
+             "psnr_db": result["psnr"], "depth_l1_m": result["depth_l1"]}
+    print(f"# stereo System frame split (medians over frames 1-{STEREO_FRAMES - 1}; rest = "
+          f"SGBM, the two extractions, the row matching and the System's own rest): "
+          f"{json.dumps(split)}", flush=True)
+    print(f"# stereo System frame rows (s: wall, {', '.join(phases)}): "
+          f"{json.dumps([[round(v, 4) for v in r] for r in rows.tolist()])}", flush=True)
+
+    system2, _, _ = run(STEREO_RERUN_FRAMES)
+    same = all(np.array_equal(a.T_cw, b.T_cw) for a, b in zip(
+        system2.trajectory, system.trajectory[:STEREO_RERUN_FRAMES]))
+    same &= all(torch.equal(getattr(system2.gm, k), snap[0][k]) for k in PARAM_NAMES)
+    same &= np.array_equal(system2.fe.pt_pos, snap[1])
+    checks.record(f"stereo System rerun of {STEREO_RERUN_FRAMES} frames bitwise equal (poses, "
+                  "splat map, map points)", 0.0, 0.0, ok=same)
+    return {"launches": launches, "split": split, "frames": frames,
+            "matches": (csm.fn, csm.args, csm.kw)}
+
+
+def phase_mono_system(torch, checks, dev) -> dict:
+    """Phase 25: ``System(frontend="orb").track_monocular`` with TUM1's camera
+    and ORB settings (loop closing on, the JAX app's bootstrap gates 40 /
+    30) over the VGA version of ``configs/synthetic_mono.yaml``'s scene:
+    the bootstrap, tracking, LOST after 2 blank frames and relocalization
+    after a jump back; a short run that resets itself; a 4-frame rerun.
+    The monocular path launches no kernel."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.interop import system_config_from_dict
+    from gsorb_slam_tpu_torch.slam import system as SM
+    from gsorb_slam_tpu_torch.slam.dataset import SyntheticDataset
+    from gsorb_slam_tpu_torch.splat.gaussians import PARAM_NAMES
+
+    cfg = system_config_from_dict(TUM1_RECT)
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(_tum1_camera(cfg), n_frames=MONO_FRAMES, n_splats=6000, seed=7,
+                          motion_scale=0.35, scale_range=(0.02, 0.05), device=dev)
+    frames = [ds[i] for i in range(MONO_FRAMES)]
+    print(f"# phase 25: {MONO_FRAMES} monocular frames of {cfg.camera.width}x"
+          f"{cfg.camera.height} generated in {time.perf_counter() - t0:.2f} s", flush=True)
+    blank = np.zeros_like(frames[0].rgb)
+    init_calls = []
+    init = SM.initialize_monocular
+
+    def recorded_init(*a, **kw):
+        res = init(*a, **kw)
+        if res is not None:
+            init_calls.append((a, kw, res))
+        return res
+
+    def make():
+        return SM.System(cfg, seed=0, device=dev, frontend="orb", mono_min_matches=40,
+                         mono_min_inliers=30)
+
+    def run(system, seq, t_offset=0.0):
+        out, walls = [], []
+        for i, fr in enumerate(seq):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out.append(system.track_monocular(fr.rgb, t_offset + fr.timestamp))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        return out, walls
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    SM.initialize_monocular = recorded_init
+    try:
+        system = make()
+        poses, walls = run(system, frames)
+    finally:
+        SM.initialize_monocular = init
+    fe = system.fe
+    booted = [T is not None for T in poses]
+    first = booted.index(True) if any(booted) else -1
+    init_args, init_kw, res0 = init_calls[0] if init_calls else ((), {}, None)
+    print(f"# mono System: bootstrap at frame {first} ({res0.model if res0 else '-'} model, "
+          f"{int(res0.inliers.sum()) if res0 else 0} points from "
+          f"{len(init_args[0]) if init_args else 0} matches); "
+          f"ORB inliers per frame {[r.track_iters for r in system.trajectory]}; map points "
+          f"{fe.n_points}, frontend keyframes {len(fe.keyframes)}, splats "
+          f"{int(system.gm.n_active())}", flush=True)
+    checks.record("mono System bootstrapped, every later frame has a pose", 0.0, 0.0,
+                  ok=first >= 0 and all(booted[first:]))
+    checks.record("mono System map points (at least)", fe.n_points, 25, ok=fe.n_points > 25)
+    checks.record("mono System splat map seeded (at least)", int(system.gm.n_active()), 25,
+                  ok=int(system.gm.n_active()) > 25)
+    checks.record("mono System loop closer solves the scale (fix_scale False)", 0.0, 0.0,
+                  ok=system.loop_closer is not None and system.loop_closer.fix_scale is False)
+    tracked = np.asarray(walls[first + 1:]) if first >= 0 else np.asarray(walls)
+    e2e = {"frame_s_median": float(np.median(tracked)), "frame_s_max": float(tracked.max()),
+           "bootstrap_frame_s": float(walls[first]) if first >= 0 else None,
+           "frame0_s": float(walls[0])}
+    print(f"# mono System frame times (s, tracked frames after the bootstrap): "
+          f"{json.dumps(e2e)}; all {json.dumps([round(w, 4) for w in walls])}", flush=True)
+
+    # LOST after a blackout, relocalized after a jump back to one of the
+    # first frames after the bootstrap (tests/test_sensors.py jumps to frames
+    # 2-4, where its smaller scene has bootstrapped at frame 1).
+    for j in range(2):
+        system.track_monocular(blank, 100.0 + j)
+    lost = system._mono_state == "LOST"
+    recovered = None
+    for k in range(first + 1, min(first + 4, MONO_FRAMES)):
+        T = system.track_monocular(frames[k].rgb, 200.0 + k)
+        if system._mono_state == "OK" and T is not None and poses[k] is not None:
+            err = float(np.linalg.norm(T[:3, 3] - poses[k][:3, 3]))
+            recovered = (k, err, max(float(np.linalg.norm(poses[k][:3, 3])), 0.2))
+            break
+    print(f"# mono System: LOST after 2 blank frames {lost}; relocalized (frame, error, "
+          f"scale) {recovered}", flush=True)
+    checks.record("mono System LOST after 2 blank frames", 0.0, 0.0, ok=lost)
+    checks.record("mono System relocalized after the jump back (error / scale)",
+                  recovered[1] / recovered[2] if recovered else math.inf, 0.5)
+
+    # A young map lost for 3 frames resets itself and bootstraps again.
+    short = make()
+    seq = frames[:max(first, 1) + 2]
+    run(short, seq)
+    booted_short = short._mono_initialized
+    run(short, [dataclasses.replace(frames[0], rgb=blank)] * 4, 100.0)
+    was_reset = not short._mono_initialized and short._mono_state == "NOT_INITIALIZED"
+    run(short, seq, 200.0)
+    checks.record("mono System auto-reset when lost with a young map, then bootstraps again",
+                  0.0, 0.0, ok=booted_short and was_reset and short._mono_initialized)
+
+    # Two more Systems over the frames up to 3 past the bootstrap.
+    n_rerun = max(first, 0) + MONO_RERUN_FRAMES
+    again = make()
+    poses2, _ = run(again, frames[:n_rerun])
+    ref = make()
+    poses_ref, _ = run(ref, frames[:n_rerun])
+    same = all((a is None and b is None) or (a is not None and b is not None
+                                             and np.array_equal(a, b))
+               for a, b in zip(poses2, poses_ref))
+    same &= all((a is None and b is None) or np.array_equal(a, b)
+                for a, b in zip(poses2, poses[:n_rerun]))
+    same &= np.array_equal(again.fe.pt_pos, ref.fe.pt_pos)
+    same &= all(torch.equal(getattr(again.gm, k), getattr(ref.gm, k)) for k in PARAM_NAMES)
+    checks.record(f"mono System rerun of {n_rerun} frames bitwise equal (poses, map points, "
+                  "splat map)", 0.0, 0.0, ok=same)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    checks.record("mono phase launched no kernel (K1-K9 = 0)", sum(launches.values()), 0,
+                  ok=not any(launches.values()))
+    return {"e2e": e2e, "init": (init_args, init_kw, res0), "launches": launches}
+
+
+def phase_sensor_modules(torch, checks, dev, stereo: dict, mono: dict) -> dict:
+    """Phase 26: the stereo matcher on phase 24's last VGA pair and the
+    initializer on phase 25's bootstrap, on the card against the CPU."""
+    from gsorb_slam_tpu_torch.frontend import initializer as I
+    from gsorb_slam_tpu_torch.profiling.common import wall_ms
+
+    fn, args, kw = stereo["matches"]
+    card = fn(*args, **kw)
+    cpu = fn(*_to_cpu(torch, args), **_to_cpu(torch, kw))
+    same = all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+               for f in ("u_right", "depth", "valid"))
+    n_l, n_r = int(args[0].valid.sum()), int(args[1].valid.sum())
+    checks.record(f"compute_stereo_matches card == CPU ({n_l} x {n_r} keypoints; u_right, "
+                  f"depth, valid)", 0.0, 0.0, ok=same)
+    out = {"stereo_matches_ms": wall_ms(lambda: fn(*args, **kw), torch.device(dev), 5),
+           "valid_matches": int(card.valid.sum())}
+
+    init_args, init_kw, _ = mono["init"]
+    if init_args:
+        kw_card = {**init_kw, "device": dev}
+        kw_cpu = {**init_kw, "device": "cpu"}
+        a = I.initialize_monocular(*init_args, **kw_card)
+        b = I.initialize_monocular(*init_args, **kw_card)
+        c = I.initialize_monocular(*init_args, **kw_cpu)
+        ok = a is not None and c is not None and a.model == c.model
+        ok &= ok and np.array_equal(a.inliers, c.inliers)
+        err = float(np.abs(a.T_cw2 - c.T_cw2).max()) if ok else math.inf
+        checks.record(f"initialize_monocular card vs CPU ({len(init_args[0])} matches): the "
+                      "same model and inlier mask", 0.0, 0.0, ok=ok)
+        checks.record("initialize_monocular card vs CPU T_cw2 (max abs)", err, 1e-4)
+        checks.record("initialize_monocular two card runs bitwise equal", 0.0, 0.0,
+                      ok=b is not None and np.array_equal(a.T_cw2, b.T_cw2)
+                      and np.array_equal(a.points, b.points)
+                      and np.array_equal(a.inliers, b.inliers))
+        out["initialize_monocular_ms"] = wall_ms(
+            lambda: I.initialize_monocular(*init_args, **kw_card), torch.device(dev), 3)
+        out["score_gap_card_cpu"] = _init_score_gaps(torch, I, init_args, dev)
+    else:
+        checks.record("initialize_monocular card vs CPU: a bootstrap to compare", 0.0, 0.0,
+                      ok=False)
+
+    import cv2
+
+    fr = stereo["frames"][-1]
+    l8 = cv2.cvtColor((np.asarray(fr.left, np.float32) * 255).astype(np.uint8),
+                      cv2.COLOR_RGB2GRAY)
+    r8 = cv2.cvtColor((np.asarray(fr.right, np.float32) * 255).astype(np.uint8),
+                      cv2.COLOR_RGB2GRAY)
+    sgbm = cv2.StereoSGBM_create(minDisparity=0, numDisparities=96, blockSize=7, P1=8 * 49,
+                                 P2=32 * 49, uniquenessRatio=10)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sgbm.compute(l8, r8)
+    out["sgbm_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"# sensor modules (wall, to a synchronize; SGBM on the host): {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def _init_score_gaps(torch, I, init_args, dev) -> dict:
+    """The largest gap between the card's and the CPU's score of one F / H
+    hypothesis of the bootstrap, over the samples with distinct points and
+    over those that repeat one (before ``_drop_repeats``): a repeat leaves
+    a null space of two or more dimensions, and each SVD returns another
+    vector of it."""
+    from gsorb_slam_tpu_torch.frontend import draws
+
+    uv1, uv2 = init_args[0], init_args[1]
+    draw_f, draw_h = draws.draw_index_sets(0, [(200, 8), (200, 4)], len(uv1))
+    scores = {}
+    for d in (dev, "cpu"):
+        p1, p2 = (torch.as_tensor(np.asarray(a, np.float32), device=d) for a in (uv1, uv2))
+        (n1, T1), (n2, T2) = I._normalize(p1), I._normalize(p2)
+        f, h = (torch.as_tensor(np.array(x), device=d) for x in (draw_f, draw_h))
+        F = T2.T @ I.compute_f_batch(n1[f], n2[f]) @ T1
+        H = torch.linalg.inv(T2) @ I.compute_h_batch(n1[h], n2[h]) @ T1
+        scores[d] = (I.score_f(F, p1, p2)[0].cpu().numpy(), I.score_h(H, p1, p2)[0].cpu().numpy())
+    out = {}
+    for k, (name, draw) in enumerate((("F", draw_f), ("H", draw_h))):
+        srt = np.sort(draw, axis=1)
+        distinct = (srt[:, 1:] != srt[:, :-1]).all(1)
+        gap = np.abs(scores[dev][k] - scores["cpu"][k])
+        out[name] = {"distinct": float(gap[distinct].max()),
+                     "repeats": float(gap[~distinct].max()) if (~distinct).any() else None,
+                     "n_repeats": int((~distinct).sum())}
+    return out
+
+
+def phase_sensor_apps(torch, checks, dev, stereo_frames, tum_dir: str, tmp: str) -> dict:
+    """Phase 27: ``run_stereo --type kitti`` over a KITTI layout written from
+    phase 24's first frames, ``run_mono --type tum`` over phase 19's TUM
+    directory and ``run_mono --type synthetic`` with
+    ``configs/synthetic_mono.yaml`` (as ``.json``)."""
+    import cv2
+
+    from gsorb_slam_tpu_torch.apps import run_mono, run_stereo
+
+    kitti = os.path.join(tmp, "kitti")
+    for sub in ("image_0", "image_1"):
+        os.makedirs(os.path.join(kitti, sub), exist_ok=True)
+    gray = lambda rgb: cv2.cvtColor((np.asarray(rgb, np.float32) * 255).astype(np.uint8),
+                                    cv2.COLOR_RGB2GRAY)
+    for i, fr in enumerate(stereo_frames[:KITTI_FRAMES]):
+        cv2.imwrite(os.path.join(kitti, "image_0", f"{i:06d}.png"), gray(fr.left))
+        cv2.imwrite(os.path.join(kitti, "image_1", f"{i:06d}.png"), gray(fr.right))
+    with open(os.path.join(kitti, "times.txt"), "w") as f:
+        f.write("".join(f"{fr.timestamp:.6e}\n" for fr in stereo_frames[:KITTI_FRAMES]))
+    rect = os.path.join(tmp, "tum1_rect.json")
+    with open(rect, "w") as f:
+        json.dump(TUM1_RECT, f)
+    synth = os.path.join(tmp, "synthetic_mono.json")
+    with open(synth, "w") as f:
+        json.dump(SYNTH_MONO, f)
+
+    results = {}
+    for label, mod, argv in (
+            ("run_stereo --type kitti", run_stereo,
+             ["--config", rect, "--type", "kitti", "--dataset", kitti]),
+            ("run_mono --type tum", run_mono, ["--config", rect, "--type", "tum", "--dataset",
+                                               tum_dir]),
+            ("run_mono --type synthetic", run_mono,
+             ["--config", synth, "--type", "synthetic", "--max-frames", str(MONO_APP_FRAMES)])):
+        out = os.path.join(tmp, label.replace(" ", "_").replace("-", ""))
+        t0 = time.perf_counter()
+        rc, _ = _quiet_call(mod.main, argv + ["--out", out])
+        secs = time.perf_counter() - t0
+        written = all(os.path.exists(os.path.join(out, n)) and os.path.getsize(os.path.join(
+            out, n)) > 0 for n in ("CameraTrajectory_TUM.txt", "CameraTrajectory_KITTI.txt"))
+        res = {}
+        if os.path.exists(os.path.join(out, "result.txt")):
+            with open(os.path.join(out, "result.txt")) as f:
+                res = json.loads(f.read().splitlines()[-1])
+        keep = {k: res.get(k) for k in ("frames_total", "frames_tracked", "median_frame_s",
+                                        "n_keyframes", "total_gaussians")}
+        print(f"# {label}: exit {rc} in {secs:.1f} s; {json.dumps(keep)}", flush=True)
+        checks.record(f"apps: {label} exit 0, both trajectories and result.txt written", 0.0,
+                      0.0, ok=rc == 0 and written and res.get("frames_total", 0) > 0)
+        results[label] = keep
+    return results
+
 
 def profile_call(torch, fn, best_s: float, what: str) -> dict | None:
     """One call of ``fn`` under torch.profiler (``profiling.common.profile_call``):
@@ -2144,10 +2593,16 @@ def main() -> int:
         phase_disk(torch, checks, dev, sysres["frames"], tmp)
         phase_scale_inits(torch, checks, dev, sysres["frames"], tmp)
 
-    # ---- 21-23. the ORB frontend, the ORB System and loop closing ----
-    fe_res = phase_frontend(torch, checks, dev)
-    phase_orb_system(torch, checks, dev, fe_res["frames"])
-    phase_loop(torch, checks, dev)
+        # ---- 21-23. the ORB frontend, the ORB System and loop closing ----
+        fe_res = phase_frontend(torch, checks, dev)
+        phase_orb_system(torch, checks, dev, fe_res["frames"])
+        phase_loop(torch, checks, dev)
+
+        # ---- 24-27. the stereo and monocular entry points ----
+        stereo = phase_stereo_system(torch, checks, dev)
+        mono = phase_mono_system(torch, checks, dev)
+        phase_sensor_modules(torch, checks, dev, stereo, mono)
+        phase_sensor_apps(torch, checks, dev, stereo["frames"], os.path.join(tmp, "tum"), tmp)
 
     with torch.no_grad():
         k1_ms = time_ms(torch, lambda: tracking_loss_grad(
@@ -2304,9 +2759,15 @@ def main() -> int:
           f"pose cotangent: {nz_k2b:.0f} of {slots_t}", flush=True)
 
     def entry(name, source, replaces, launches_n, err, ms, plain_ms, b, by):
+        # The count of the kernel's main path plus the stereo System's (phase 24).
+        counter = {"K1": "fused_track_fast", "K2f": "preprocess_fwd", "K2b": "preprocess_bwd",
+                   "K3": "blend_forward", "K4": "blend_flat_fwd", "K5": "blend_flat_bwd",
+                   "K6": "blend_backward", "K7": "fused_track_exact", "K8": "paired_track",
+                   "K9": "fused_track_ablate"}[name.split()[0]]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches_n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b, "bound_by": by, "library_ms": None}
+                "launches": launches_n + stereo["launches"][counter], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                "library_ms": None}
 
     kernels = [
         entry("K1 fused_track_fast", "gsorb_slam_tpu_torch/csrc/fused_track.cu",
@@ -2344,7 +2805,7 @@ def main() -> int:
     for k in kernels:
         print(f"# {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}), {k['launches']} launches on its "
-              f"main path", flush=True)
+              f"main path and the stereo System's", flush=True)
     print("# library_ms: null for every kernel: no single PyTorch call computes a "
           "depth-ordered alpha blend with its stop rules, its backward, or the EWA "
           "projection's pose adjoint", flush=True)

@@ -10,8 +10,6 @@ TH_LOW = 50, TH_HIGH = 100, HISTO_LENGTH = 30 (``src/ORBmatcher.cc:35-41``).
 
 PyTorch has no population count: :func:`popcount32` is the SWAR count on
 ``int64`` words masked to 32 bits, exact on every device.
-``compute_stereo_matches`` belongs to the stereo entry point and is not
-ported yet.
 """
 
 from __future__ import annotations
@@ -185,6 +183,45 @@ def search_for_triangulation(
     best, d_best = _best(D)
     valid = d_best <= max_dist
     return MatchResult(idx2=torch.where(valid, best, -1), dist=d_best, valid=valid)
+
+
+
+class StereoMatches(NamedTuple):
+    u_right: torch.Tensor  # [NL] matched right-image u (-1 = none)
+    depth: torch.Tensor  # [NL] bf / disparity (0 = none)
+    valid: torch.Tensor  # [NL] bool
+
+
+def compute_stereo_matches(
+    fL: ORBFeatures,
+    fR: ORBFeatures,
+    bf: float,
+    min_z: float,
+    scale_factors: torch.Tensor,  # [n_levels] per-octave scale (1.2^l)
+    max_dist: int = (TH_HIGH + TH_LOW) // 2,
+) -> StereoMatches:
+    """Sparse stereo depth by descriptor matching along rectified rows
+    (``Frame::ComputeStereoMatches``, ``src/Frame.cc``): candidates within a
+    +-2 * scale row band, disparity in (0, bf / min_z], octaves within one,
+    the best Hamming match (the first index on a tie) under ``thOrbDist`` =
+    (TH_HIGH + TH_LOW) / 2; depth = bf / disparity. As in the JAX package,
+    the reference's SAD sub-pixel refinement is left out (it needs the
+    image patches). Rectified pair: uL - uR = disparity > 0."""
+    max_d = bf / max(min_z, 1e-3)
+    D = hamming_matrix(fL.descriptors, fR.descriptors)
+    row_tol = 2.0 * scale_factors[torch.clamp(fL.octave, 0, scale_factors.shape[0] - 1).long()]
+    dv = (fL.uv[:, None, 1] - fR.uv[None, :, 1]).abs()
+    disp = fL.uv[:, None, 0] - fR.uv[None, :, 0]
+    d_oct = (fL.octave[:, None] - fR.octave[None, :]).abs()
+    ok = ((dv <= row_tol[:, None]) & (disp > 0.0) & (disp <= max_d) & (d_oct <= 1)
+          & fL.valid[:, None] & fR.valid[None, :])
+    best, d_best = _best(torch.where(ok, D, _big(D)))
+    valid = d_best <= max_dist
+    uR = fR.uv[:, 0][best]
+    disparity = torch.clamp(fL.uv[:, 0] - uR, min=0.01)
+    zero = torch.zeros((), dtype=uR.dtype, device=uR.device)
+    return StereoMatches(u_right=torch.where(valid, uR, zero - 1.0),
+                         depth=torch.where(valid, bf / disparity, zero), valid=valid)
 
 
 def _predict_level(dist3d, max_d, scale_factors):

@@ -1,10 +1,13 @@
-"""RGB-D datasets: the TUM, Replica and ScanNet disk layouts, their
-exporters, and the generated sequences (counterpart of
-``gsorb_slam_tpu/slam/dataset.py``).
+"""Datasets: the TUM, Replica and ScanNet RGB-D disk layouts and their
+exporters, the generated sequences, and the monocular (TUM ``rgb.txt``,
+KITTI ``image_0``) and stereo (KITTI, generated pairs) sequences
+(counterpart of ``gsorb_slam_tpu/slam/dataset.py``).
 
-Every dataset yields :class:`RGBDFrame` ``(timestamp, rgb [H, W, 3] f32 in
-[0, 1], depth [H, W] f32 meters)`` with the ground-truth pose where there is
-one. Frames are host numpy arrays; the System moves them to its device.
+Every RGB-D dataset yields :class:`RGBDFrame` ``(timestamp, rgb [H, W, 3]
+f32 in [0, 1], depth [H, W] f32 meters)`` with the ground-truth pose where
+there is one; the monocular ones yield :class:`MonoFrame` and the stereo
+ones :class:`StereoFrame` (rectified left and right images). Frames are
+host numpy arrays; the System moves them to its device.
 
 Images on disk (PNG color and 16-bit depth, JPEG color) are read and
 written through ``cv2``, else Pillow, the JAX package's order; where
@@ -556,6 +559,96 @@ def open_dataset(kind: str, path: str, depth_factor: float) -> RGBDDataset:
     if kind == "scannet":
         return ScanNetDataset(path, depth_factor if depth_factor != 5000.0 else 1000.0)
     raise ValueError(f"unknown dataset type: {kind}")
+
+
+
+# Monocular and stereo sequences (the reference's Examples/Monocular and
+# Examples/Stereo loaders).
+
+
+@dataclasses.dataclass
+class MonoFrame:
+    timestamp: float
+    rgb: np.ndarray  # [H, W, 3] float32 in [0, 1]
+    gt_T_cw: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class StereoFrame:
+    timestamp: float
+    left: np.ndarray  # [H, W, 3] float32 in [0, 1]
+    right: np.ndarray  # [H, W, 3] float32 in [0, 1]
+    gt_T_cw: Optional[np.ndarray] = None
+
+
+class MonoTumDataset:
+    """Monocular TUM sequence: ``rgb.txt`` only, no depth association
+    (``Examples/Monocular/mono_tum.cc`` LoadImages); ``groundtruth.txt`` is
+    optional, for evaluation."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.items = [(float(r[0]), os.path.join(root, r[1]))
+                      for r in _read_rows(os.path.join(root, "rgb.txt"))]
+        self.gt = TUMDataset._load_gt(os.path.join(root, "groundtruth.txt"))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i) -> MonoFrame:
+        t, p = self.items[i]
+        return MonoFrame(timestamp=t, rgb=_imread_color(p), gt_T_cw=TUMDataset._gt_pose(self, t))
+
+
+class KittiStereoDataset:
+    """KITTI odometry stereo: ``image_0/`` (left gray), ``image_1/`` (right
+    gray), ``times.txt`` (``Examples/Stereo/stereo_kitti.cc`` LoadImages).
+    With ``mono=True`` only ``image_0`` is read (``mono_kitti.cc``)."""
+
+    def __init__(self, root: str, mono: bool = False):
+        self.root = root
+        self.mono = mono
+        with open(os.path.join(root, "times.txt")) as f:
+            self.times = [float(x) for x in f.read().split() if x.strip()]
+        names = sorted(os.listdir(os.path.join(root, "image_0")))
+        n = min(len(self.times), len(names))
+        self.times = self.times[:n]
+        self.left = [os.path.join(root, "image_0", name) for name in names[:n]]
+        self.right = None if mono else [os.path.join(root, "image_1", name)
+                                        for name in names[:n]]
+
+    def __len__(self):
+        return len(self.left)
+
+    def __getitem__(self, i):
+        if self.mono:
+            return MonoFrame(timestamp=self.times[i], rgb=_imread_color(self.left[i]))
+        return StereoFrame(timestamp=self.times[i], left=_imread_color(self.left[i]),
+                           right=_imread_color(self.right[i]))
+
+
+class StereoSyntheticDataset:
+    """Rectified stereo pairs rendered from one :class:`SyntheticDataset`
+    scene: the right camera is the left pose shifted by ``baseline`` along
+    camera +x (x_right = x_left - b); the seed shares the scene."""
+
+    def __init__(self, cam: Camera, baseline: float, n_frames: int = 10,
+                 device: torch.device | str = "cuda", **kw):
+        left = SyntheticDataset(cam, n_frames=n_frames, device=device, **kw)
+        T_b = np.eye(4, dtype=np.float32)
+        T_b[0, 3] = -baseline
+        right = SyntheticDataset(cam, trajectory=[T_b @ T for T in left.poses], device=device,
+                                 **kw)
+        self.cam = cam
+        self._left, self._right = left, right
+
+    def __len__(self):
+        return len(self._left)
+
+    def __getitem__(self, i) -> StereoFrame:
+        lf, rf = self._left[i], self._right[i]
+        return StereoFrame(timestamp=lf.timestamp, left=lf.rgb, right=rf.rgb,
+                           gt_T_cw=lf.gt_T_cw)
 
 
 def _rgb8(rgb: np.ndarray) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""The RGB-D SLAM System: the per-frame orchestration (counterpart of
-``gsorb_slam_tpu/slam/system.py`` for RGB-D input).
+"""The SLAM System: the per-frame orchestration for RGB-D, stereo and
+monocular input (counterpart of ``gsorb_slam_tpu/slam/system.py``).
 
 Equivalent of ``System`` / ``Tracking::TrackWithGaussian``
 (``src/System.cc:34-229``, ``src/Tracking.cc:293-451``). Per frame:
@@ -43,8 +43,17 @@ one device.
 With ``frontend="orb"``, 3 frames in a row without an ORB pose spend the
 lost-mode tracking budget and try relocalization (BoW candidates and
 PnP). The loop closer runs when ``Debug.useLoop`` is set, with the
-packaged vocabulary unless one is passed. The monocular and stereo entry
-points are not ported yet and raise.
+packaged vocabulary unless one is passed.
+
+The other sensors, as in the JAX package: ``track_stereo`` makes dense
+depth with OpenCV's SGBM on the host and, with the ORB frontend, per-
+keypoint depths from ORB matches along the rectified rows, then runs
+``track_rgbd`` (so the stereo path runs the RGB-D kernels).
+``track_monocular`` (ORB frontend only) bootstraps with the H / F
+initializer, then tracks by ORB alone through the classic OK / LOST state
+machine with relocalization; it seeds the splat map with the triangulated
+points but, like the reference's monocular path, never tracks by
+rendering, so it launches no kernel.
 """
 
 from __future__ import annotations
@@ -62,7 +71,9 @@ import torch.distributed as dist
 from gsorb_slam_tpu_torch import _build
 from gsorb_slam_tpu_torch.core.camera import Camera, Distortion
 from gsorb_slam_tpu_torch.core.config import SystemConfig, load_config
-from gsorb_slam_tpu_torch.frontend.orb import ORBFeatures
+from gsorb_slam_tpu_torch.frontend.initializer import initialize_monocular
+from gsorb_slam_tpu_torch.frontend.matcher import compute_stereo_matches, match_descriptors
+from gsorb_slam_tpu_torch.frontend.orb import ORBFeatures, descriptors_to_numpy, level_sigma2
 from gsorb_slam_tpu_torch.interop import frontend_state_from_numpy, gaussian_map_from_numpy
 from gsorb_slam_tpu_torch.parallel import mesh as PM
 from gsorb_slam_tpu_torch.parallel import tracking as PT
@@ -78,6 +89,7 @@ from gsorb_slam_tpu_torch.slam.loop import LoopCloser
 from gsorb_slam_tpu_torch.splat.gaussians import (
     PARAM_NAMES,
     GaussianMap,
+    add_points,
     compact,
     empty_map,
     prefix_view,
@@ -139,12 +151,18 @@ class System:
         seed: int = 0,
         frontend: str = "render",  # "render" | "orb"
         vocabulary=None,  # frontend.vocab.Vocabulary for loop closing
+        mono_min_matches: int = 60,
+        mono_min_inliers: int = 50,
         use_mesh: bool = False,
         device: torch.device | str = "cuda",
     ):
         if frontend not in ("render", "orb"):
             raise ValueError(f"frontend={frontend!r}: 'render' or 'orb'")
         self.device = torch.device(device)
+        # The monocular bootstrap's gates: descriptor matches, then H / F
+        # inliers.
+        self.mono_min_matches = mono_min_matches
+        self.mono_min_inliers = mono_min_inliers
         self.cfg = config if isinstance(config, SystemConfig) else load_config(config)
         cc = self.cfg.camera
         self.cam = Camera(fx=cc.fx, fy=cc.fy, cx=cc.cx, cy=cc.cy, width=cc.width,
@@ -222,6 +240,18 @@ class System:
         self._bin_stats: list[tuple[torch.Tensor, torch.Tensor]] = []
         self._profiler: Optional[torch.profiler.profile] = None  # start_trace
         self._trace_dir = ""
+        # The monocular state machine. The first track_monocular call frees
+        # the loop closer's scale (monocular loops solve a Sim3); reset()
+        # counts as that call, as in the JAX package (ROADMAP queue 3).
+        self._mono_first_call = True
+        self._clear_mono_state()
+        self._mono_last_kf_frame = -(10**9)
+
+    def _clear_mono_state(self) -> None:
+        self._mono_ref: Optional[tuple[ORBFeatures, np.ndarray]] = None
+        self._mono_initialized = False
+        self._mono_state = "NOT_INITIALIZED"
+        self._mono_lost = 0
 
     def _new_frontend(self) -> GeometricFrontend:
         cc = self.cfg.camera
@@ -692,8 +722,10 @@ class System:
     def reset(self) -> None:
         """``System::Reset`` (``src/System.cc``, ``Tracking::Reset``): drop the
         map, the keyframes, the trajectory, the motion model, the run's
-        statistics and, with the ORB frontend, its map points, keyframes and
-        loop database (the vocabulary stays). The keyframe pools are zeroed
+        statistics, the monocular state and, with the ORB frontend, its map
+        points, keyframes and loop database (the vocabulary stays; the new
+        loop closer keeps ``fix_scale=True`` even on the monocular path, as
+        in the JAX package: ROADMAP queue 3). The keyframe pools are zeroed
         in place (no new allocation). The config, camera, device, timings,
         the built kernels, the process group (``use_mesh``) and the random
         state survive, as in the JAX package (its key is not reset either):
@@ -721,6 +753,9 @@ class System:
             self.fe = self._new_frontend()
         if self.loop_closer is not None:
             self.loop_closer = LoopCloser(self.loop_closer.db.vocab)
+        self._clear_mono_state()
+        self._mono_last_kf_frame = -(10**9)
+        self._mono_first_call = False
 
     # ------------------------------------------------------------ checkpoint
 
@@ -864,13 +899,190 @@ class System:
     # --------------------------------------------------------- other sensors
 
     def track_stereo(self, left, right, timestamp: float = 0.0) -> np.ndarray:
-        """The stereo entry point (``System::TrackStereo``): not ported yet."""
-        raise NotImplementedError("track_stereo: the stereo entry point is not ported yet")
+        """The stereo entry point (``System::TrackStereo``) for a rectified
+        pair (``[H, W, 3]`` or gray ``[H, W]`` numpy arrays in [0, 1]).
 
-    def track_monocular(self, image, timestamp: float = 0.0):
-        """The monocular entry point (``System::TrackMonocular``): not ported
-        yet."""
-        raise NotImplementedError("track_monocular: the monocular entry point is not ported yet")
+        Dense depth from OpenCV's SGBM on the 8-bit gray pair feeds the
+        splat map and tracking; with the ORB frontend, ORB matches along the
+        rectified rows (``Frame::ComputeStereoMatches``) give per-keypoint
+        depths for new map points and right-image coordinates for the
+        stereo edges of the pose optimization (``src/Optimizer.cc:300-380``),
+        both extracted from the same 8-bit gray. Then ``track_rgbd``."""
+        import cv2
+
+        lg8 = (np.asarray(left, np.float32) * 255).astype(np.uint8)
+        rg8 = (np.asarray(right, np.float32) * 255).astype(np.uint8)
+        if lg8.ndim == 3:
+            lg8 = cv2.cvtColor(lg8, cv2.COLOR_RGB2GRAY)
+            rg8 = cv2.cvtColor(rg8, cv2.COLOR_RGB2GRAY)
+        # Disparities up to 96 for VGA-class widths (SGBM needs width -
+        # numDisparities > blockSize / 2).
+        num_disp = max(16, min(96, ((lg8.shape[1] // 3) // 16) * 16))
+        sgbm = cv2.StereoSGBM_create(minDisparity=0, numDisparities=num_disp, blockSize=7,
+                                     P1=8 * 49, P2=32 * 49, uniquenessRatio=10)
+        disp = sgbm.compute(lg8, rg8).astype(np.float32) / 16.0
+        bf = self.cfg.camera.bf
+        depth = np.where(disp > 0.5, bf / np.maximum(disp, 0.5), 0.0)
+        rgb = left if np.asarray(left).ndim == 3 else np.repeat(
+            np.asarray(left)[..., None], 3, axis=-1)
+
+        stereo_aux = None
+        if self.fe is not None and bf > 0:
+            feats_l = self.fe._extract(lg8.astype(np.float32) / 255.0)
+            feats_r = self.fe._extract(rg8.astype(np.float32) / 255.0)
+            scale_factors = torch.as_tensor(np.sqrt(level_sigma2(self.cfg.orb)),
+                                            device=self.device)
+            sm = compute_stereo_matches(feats_l, feats_r, bf, min_z=0.3,
+                                        scale_factors=scale_factors)
+            valid = sm.valid.cpu().numpy()
+            stereo_aux = dict(
+                feats=feats_l,
+                kp_ur=np.where(valid, sm.u_right.cpu().numpy(), -1.0).astype(np.float32),
+                kp_depth=sm.depth.cpu().numpy().astype(np.float32),
+            )
+        return self.track_rgbd(rgb, depth, timestamp, stereo_aux=stereo_aux)
+
+    def track_monocular(self, rgb, timestamp: float = 0.0) -> Optional[np.ndarray]:
+        """The monocular entry point (``System::TrackMonocular``; ``rgb [H, W,
+        3]`` numpy in [0, 1]); needs ``frontend="orb"``. Returns None until
+        the H / F bootstrap succeeds, then T_cw each frame.
+
+        As in the reference's monocular scope, the path never tracks by
+        rendering (``src/Tracking.cc:244,832-1009``): the ORB frontend tracks
+        and maps, and the splat map is only seeded with the triangulated
+        bootstrap points."""
+        if self.fe is None:
+            raise RuntimeError("monocular tracking requires frontend='orb'")
+        rgb_np = np.asarray(rgb, np.float32)
+        gray = (0.299 * rgb_np[..., 0] + 0.587 * rgb_np[..., 1]
+                + 0.114 * rgb_np[..., 2]).astype(np.float32)
+        feats = self.fe._extract(gray)
+        if self._mono_first_call:
+            self._mono_first_call = False
+            if self.loop_closer is not None:
+                # mbFixScale is False for monocular (src/LoopClosing.cc:234).
+                self.loop_closer.fix_scale = False
+        if not self._mono_initialized:
+            return self._mono_bootstrap(feats, rgb_np, gray, timestamp)
+
+        # The classic Track() state machine (src/Tracking.cc:490-738): OK ->
+        # projection tracking; LOST -> relocalization; an automatic reset
+        # when lost with a young map (:699-707).
+        T_pred = (self.velocity @ self.last_T_cw).astype(np.float32)
+        fe_res = self.fe.process_frame(gray, T_pred, feats=feats)
+        if fe_res.T_orb is not None and fe_res.n_inliers >= 10:
+            self._mono_state = "OK"
+            self._mono_lost = 0
+            T_cw = fe_res.T_orb
+            # Keyframe on a frame gap or weak tracking (NeedNewKeyFrame's
+            # monocular gates, simplified), with local mapping.
+            if self.frame_id - self._mono_last_kf_frame >= 5 or fe_res.n_inliers < 40:
+                kf = self.fe.create_keyframe(feats, np.zeros_like(gray), T_cw, self.frame_id,
+                                             run_local_mapping=True)
+                self._mono_last_kf_frame = self.frame_id
+                if self.loop_closer is not None:
+                    self.loop_closer.add_keyframe(kf)
+        else:
+            self._mono_state = "LOST"
+            self._mono_lost += 1
+            T_reloc = self.fe.relocalize(
+                feats, kfdb=self.loop_closer.db if self.loop_closer else None)
+            if T_reloc is not None:
+                T_cw = np.asarray(T_reloc, np.float32)
+                self._mono_state = "OK"
+                self._mono_lost = 0
+                self.velocity = np.eye(4, dtype=np.float32)
+            elif len(self.fe.keyframes) <= 5 and self._mono_lost >= 3:
+                self._mono_reset()
+                self.frame_id += 1
+                return None
+            else:
+                T_cw = T_pred  # coast on the motion model
+        self.velocity = (T_cw @ np.linalg.inv(self.last_T_cw)).astype(np.float32)
+        self.last_T_cw = T_cw
+        self.trajectory.append(
+            FrameRecord(self.frame_id, timestamp, T_cw, False, 0.0, fe_res.n_inliers))
+        self.frame_id += 1
+        return T_cw
+
+    def _mono_bootstrap(self, feats: ORBFeatures, rgb_np: np.ndarray, gray: np.ndarray,
+                        timestamp: float) -> Optional[np.ndarray]:
+        """Reference frame, then ``Initializer::Initialize`` against it; on
+        success the triangulated points enter the frontend's map and seed
+        the splat map, and two keyframes anchor the map
+        (``CreateInitialMapMonocular``, ``src/Tracking.cc:891-1009``)."""
+        if self._mono_ref is None:
+            self._mono_ref = (feats, rgb_np)
+            self.frame_id += 1
+            return None
+        ref_feats, ref_rgb = self._mono_ref
+        m = match_descriptors(ref_feats, feats)
+        mv = m.valid.cpu().numpy()
+        if mv.sum() < self.mono_min_matches:
+            self._mono_ref = (feats, rgb_np)
+            self.frame_id += 1
+            return None
+        idx2 = m.idx2.cpu().numpy()[mv]
+        uv1 = ref_feats.uv.cpu().numpy()[mv]
+        uv2 = feats.uv.cpu().numpy()[idx2]
+        res = initialize_monocular(uv1, uv2, self.cam.K("cpu").numpy(),
+                                   min_inliers=self.mono_min_inliers, device=self.device)
+        if res is None:
+            self.frame_id += 1
+            return None
+        good = res.inliers
+        pts = res.points[good]
+        cols = ref_rgb[np.clip(uv1[good, 1].astype(int), 0, ref_rgb.shape[0] - 1),
+                       np.clip(uv1[good, 0].astype(int), 0, ref_rgb.shape[1] - 1)]
+        fe = self.fe
+        p0 = fe.n_points
+        take = min(len(pts), len(fe.pt_pos) - p0)
+        new = slice(p0, p0 + take)
+        fe.pt_pos[new] = pts[:take]
+        fe.pt_desc[new] = descriptors_to_numpy(ref_feats.descriptors)[mv][good][:take]
+        fe.pt_valid[new] = True
+        fe.pt_visible[new] = 2
+        fe.pt_found[new] = 2
+        fe.n_points += take
+        with torch.no_grad():
+            self.gm = add_points(self.gm, self._t(pts[:take]), self._t(cols[:take]),
+                                 self._t(pts[:take, 2]),
+                                 torch.ones(take, dtype=torch.bool, device=self.device),
+                                 self.cam.fx, self.cam.fy)
+        self._mono_initialized = True
+        self._mono_state = "OK"
+        self.last_T_cw = res.T_cw2.astype(np.float32)
+        zero_depth = np.zeros_like(gray)
+        kf1 = fe.create_keyframe(ref_feats, zero_depth, np.eye(4, dtype=np.float32),
+                                 self.frame_id - 1, run_local_mapping=False)
+        kf2 = fe.create_keyframe(feats, zero_depth, self.last_T_cw, self.frame_id,
+                                 run_local_mapping=False)
+        ids = np.arange(p0, p0 + take)
+        kf1.point_ids[np.nonzero(mv)[0][good][:take]] = ids
+        kf2.point_ids[idx2[good][:take]] = ids
+        for p in ids:
+            fe._observe_kf(p, kf1.kf_id)
+            fe._observe_kf(p, kf2.kf_id)
+        if self.loop_closer is not None:
+            self.loop_closer.add_keyframe(kf1)
+            self.loop_closer.add_keyframe(kf2)
+        self._mono_last_kf_frame = self.frame_id
+        self.trajectory.append(
+            FrameRecord(self.frame_id, timestamp, self.last_T_cw, True, 0.0, 0))
+        self.frame_id += 1
+        return self.last_T_cw
+
+    def _mono_reset(self) -> None:
+        """``System::Reset`` on the monocular path: a new frontend, an empty
+        splat map and loop database, and initialization again
+        (``src/Tracking.cc:699-707``). As in the JAX package, the new loop
+        closer keeps the default ``fix_scale=True`` (ROADMAP queue 3)."""
+        self.fe = self._new_frontend()
+        self.gm = empty_map(self.cfg.mapping.max_gaussians, device=self.device)
+        if self.loop_closer is not None:
+            self.loop_closer = LoopCloser(self.loop_closer.db.vocab)
+        self._clear_mono_state()
+        self.velocity = np.eye(4, dtype=np.float32)
 
     # --------------------------------------------------------- observability
 

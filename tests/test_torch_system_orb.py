@@ -15,7 +15,8 @@ poses that agree to 1 mm).
 
 Then: a JAX checkpoint with ORB state loads into the port; the port's ORB
 checkpoint round-trips; ``reset()`` empties the frontend and the loop
-database; the stereo and monocular entry points raise by name.
+database; the stereo and monocular entry points run, and the System raises
+where it should.
 """
 
 import dataclasses
@@ -206,12 +207,26 @@ def test_orb_checkpoint_round_trip_and_reset(runs, tmp_path):
 
 
 def test_orb_system_raises_where_it_should(runs):
-    tsys = runs["tsys"]
-    fr = runs["ds"][0]
-    with pytest.raises(NotImplementedError, match="track_stereo"):
-        tsys.track_stereo(fr.rgb, fr.rgb)
-    with pytest.raises(NotImplementedError, match="track_monocular"):
-        tsys.track_monocular(fr.rgb)
+    """The stereo and monocular entry points run (they raised by name until
+    they were ported): a first monocular frame becomes the reference, a
+    stereo pair 16 px apart seeds the map; ``track_monocular`` without the
+    ORB frontend, an unknown frontend and, without a card, the default
+    device raise."""
+    fr0, fr1 = runs["ds"][0], runs["ds"][1]
+    cfg = _with_init_iters(system_config_from_dict(runs["cfg"]))
+    cfg = cfg.replace(camera=dataclasses.replace(cfg.camera, bf=40.0))
+    raster = dataclasses.replace(S.System.default_raster_config(W), **RASTER)
+    mono = S.System(cfg, seed=SEED, frontend="orb", device="cpu", raster=raster)
+    assert mono.track_monocular(fr0.rgb, fr0.timestamp) is None
+    assert mono._mono_ref is not None and mono.loop_closer.fix_scale is False
+    mono.track_monocular(fr1.rgb, fr1.timestamp)
+    assert mono.frame_id == 2 and mono._mono_state in ("NOT_INITIALIZED", "OK")
+    stereo = S.System(cfg, seed=SEED, frontend="orb", device="cpu", raster=raster)
+    T = stereo.track_stereo(fr0.rgb, np.roll(fr0.rgb, -16, axis=1), fr0.timestamp)
+    np.testing.assert_array_equal(T, np.eye(4, dtype=np.float32))
+    assert stereo.fe.n_points > 0 and int(stereo.gm.n_active()) > 0
+    with pytest.raises(RuntimeError, match="frontend='orb'"):
+        S.System(cfg, frontend="render", device="cpu", raster=raster).track_monocular(fr0.rgb)
     with pytest.raises(ValueError, match="frontend"):
         S.System(system_config_from_dict(runs["cfg"]), frontend="stereo", device="cpu")
     if not torch.cuda.is_available():
