@@ -103,12 +103,13 @@ Phases (any failed check makes the exit code non-zero):
     main path, ``profiling.profile_fused_ablate``'s ``main`` at the bench
     tracking view (every variant, K1 beside them);
 18. the profilers by their ``main`` at the bench scene's width, each cut for
-    time: ``profile_track`` (50 iterations, 2 timed frames per variant),
-    ``profile_map_full`` (20 mapping iterations per variant, 2 timed calls),
+    time: ``profile_track`` (50 iterations, 1 timed frame per variant),
+    ``profile_map_full`` (20 mapping iterations per variant, 1 timed call),
     ``profile_map_iter``, ``profile_raster``, ``profile_fused``,
     ``profile_paired_parts``, ``profile_gather`` (their defaults) and
-    ``profile_mapping_quality`` (2 QVGA frames per ablation, the four
-    ablations); each must return finite numbers, and each prints its lines;
+    ``profile_mapping_quality`` (2 QVGA frames per ablation, ``base`` and
+    ``freshbins``); each must return finite numbers, and each prints its
+    lines;
 19. the disk path on phase 12's sequence: its first 5 frames written in the
     TUM layout (``export_tum_format``: 8-bit rgb PNG, 16-bit depth PNG,
     jittered timestamps, ``groundtruth.txt``) and read back through
@@ -181,10 +182,40 @@ Phases (any failed check makes the exit code non-zero):
     directory and ``apps.run_mono --type synthetic`` with
     ``configs/synthetic_mono.yaml`` (as ``.json``, 8 frames): exit 0, both
     trajectory files and ``result.txt`` with ``frames_total``.
+28. ``apps.viewer`` over phase 19's PLY (the System's map at TUM1's VGA
+    camera): ``--mode orbit --frames 10`` and ``--mode replay`` along phase
+    19's trajectory: exit 0, one PNG and one K3 launch per frame, the
+    orbit's frame 0 equal to the 8-bit K3 render of its pose and K3 against
+    the plain blend there (2e-3 on colour), ms per frame;
+29. ``apps.viewer_web``: ``ViewerServer.from_system`` over phase 19's System
+    on 127.0.0.1 at an ephemeral port: the page and the state, 5 ``splat``
+    and one ``map`` request whose JPEGs decode at 640x480, one K3 launch per
+    splat request, ms per request;
+30. ``graft_entry.entry()`` (320x240, 20,000 splats): ``(loss, color)``
+    through K3 against the same fn with the plain blend (colour 2e-3
+    absolute, loss 1e-3 relative), two calls bitwise, a backward through K6
+    with finite gradients, the forward's and the backward's ms;
+31. ``graft_entry.dryrun_multichip(torch.cuda.device_count())``: one rank a
+    card in an NCCL group (spawned processes): finite losses and pose, the
+    ranks equal, 4 ``all_reduce`` calls, K3 = K6 = 1 and K1 = K2f = K2b = 3
+    launches on each rank; the losses and pose against the same dry run on
+    the CPU (gloo, the plain versions) within 1e-4;
+32. LPIPS with seeded random weights in a temporary ``.npz`` on phase 19's
+    render of the first frame and its gt at VGA: the card against the CPU
+    (1e-4 relative), identical images below 1e-6, ``metrics.lpips``
+    through ``GSORB_LPIPS_WEIGHTS``, TF32 off, ms per pair;
+33. ``scripts.train_vocab`` on the card into a temporary ``--out``: the
+    round-trip load, the word count, the share of node descriptors equal to
+    the packaged vocabulary's (recorded), seconds;
+34. ``scripts.debug_loop``'s ``main`` on the card: exit 0, verify's
+    diagnostics, and the loop fires with phase 23's events;
+35. ``scripts.make_tum_disk`` (3 TUM-like VGA frames generated on the card,
+    the TUM and ScanNet layouts) read back through ``slam.dataset``, and
+    ``scripts.pose2traj`` on the ScanNet directory.
 Phase 18 also runs ``profile_frontend`` (6 frames at 320x240).
 It prints a ``kernels`` JSON line (each kernel's launches on its main path
-plus the stereo System's), the card's ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+plus the stereo System's and phases 28-35's), the card's ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -992,7 +1023,9 @@ def phase_disk(torch, checks, dev, frames, tmp: str) -> dict:
                   ok=bench["backend"] == "cuda" and bench["frames"] == BENCH_FRAMES
                   and math.isfinite(bench["ate_rmse_m"]) and math.isfinite(bench["psnr_db"])
                   and bench["trunc_oracle_dropped"] == 0)
-    return {"e2e": e2e, "launches": launches, "replay": rep, "codec": codec, "bench": bench}
+    return {"e2e": e2e, "launches": launches, "replay": rep, "codec": codec, "bench": bench,
+            "system": system, "ply": os.path.join(out, "GaussianModel.ply"), "traj": est,
+            "cfg_path": cfg_path}
 
 
 def phase_scale_inits(torch, checks, dev, frames, tmp: str) -> dict:
@@ -1430,14 +1463,14 @@ def phase_profilers(torch, checks) -> dict:
     from gsorb_slam_tpu_torch import _build
 
     runs = {
-        "profile_track": ["--runs", "2"],
-        "profile_map_full": ["--iters", "20", "--runs", "2"],
+        "profile_track": ["--runs", "1"],
+        "profile_map_full": ["--iters", "20", "--runs", "1"],
         "profile_map_iter": [],
         "profile_raster": [],
         "profile_fused": [],
         "profile_paired_parts": [],
         "profile_gather": [],
-        "profile_mapping_quality": ["--frames", "2", "--ablate", "base,freshbins,lr2,lrhalf"],
+        "profile_mapping_quality": ["--frames", "2", "--ablate", "base,freshbins"],
         "profile_frontend": ["--frames", "6"],
     }
 
@@ -1800,7 +1833,7 @@ def phase_loop(torch, checks, dev) -> dict:
     out = {"closure_s": close_s, **{f"{k}_s": v for k, v in spent.items() if k != "close"}}
     print(f"# loop closure time (s, verify + correct + fuse + global BA): {json.dumps(out)}",
           flush=True)
-    return out
+    return {**out, "events": system.loop_events}
 
 # ------------------------------------------------------- stereo and mono
 
@@ -2224,6 +2257,376 @@ def phase_sensor_apps(torch, checks, dev, stereo_frames, tum_dir: str, tmp: str)
     return results
 
 
+# ------------------------------------------------- tools, viewers, entries
+
+VIEWER_FRAMES = 10  # phase 28: the orbit's frames
+WEB_REQUESTS = 5  # phase 29: timed splat renders over HTTP
+MTD_FRAMES = 3  # phase 35: frames make_tum_disk writes
+
+
+def _launches_since_reset(torch) -> dict:
+    from gsorb_slam_tpu_torch import _build
+
+    torch.cuda.synchronize()
+    return dict(_build.launches)
+
+
+def phase_viewer(torch, checks, dev, disk: dict, tmp: str) -> dict:
+    """Phase 28: ``apps.viewer`` over phase 19's PLY (the System's map at
+    TUM1's VGA camera) in ``orbit`` mode (VIEWER_FRAMES frames) and along
+    phase 19's trajectory in ``replay`` mode: exit 0, one PNG and one K3
+    launch per frame, the orbit's frame 0 equal to the 8-bit K3 render of
+    its pose, and K3 against the plain blend on that pose."""
+    import cv2
+
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.apps import viewer
+    from gsorb_slam_tpu_torch.core.camera import Camera
+    from gsorb_slam_tpu_torch.core.config import load_config
+    from gsorb_slam_tpu_torch.eval.ply import load_gaussian_ply
+    from gsorb_slam_tpu_torch.eval.trajectory import load_tum
+    from gsorb_slam_tpu_torch.raster import RasterConfig, bin_gaussians, preprocess
+    from gsorb_slam_tpu_torch.raster import render_binned, render_tiled
+
+    launches = {}
+    ms = {}
+    n_replay = len(load_tum(disk["traj"]))
+    for mode, extra, n in (("orbit", ["--frames", str(VIEWER_FRAMES)], VIEWER_FRAMES),
+                           ("replay", ["--traj", disk["traj"]], n_replay)):
+        out = os.path.join(tmp, f"viewer_{mode}")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rc, _ = _quiet_call(viewer.main, ["--ply", disk["ply"], "--config", disk["cfg_path"],
+                                          "--mode", mode, "--out", out] + extra)
+        torch.cuda.synchronize()
+        ms[mode] = (time.perf_counter() - t0) / n * 1e3
+        launches[mode] = dict(_build.launches)
+        pngs = sorted(os.listdir(out)) if os.path.isdir(out) else []
+        checks.record(f"viewer {mode}: exit 0 and {n} PNGs", len(pngs), n,
+                      ok=rc == 0 and pngs == [f"view_{i:04d}.png" for i in range(n)])
+        checks.record(f"viewer {mode}: blend_forward launches == {n}",
+                      launches[mode]["blend_forward"], n,
+                      ok=launches[mode]["blend_forward"] == n)
+    # The orbit's frame 0 again: K3 and the plain blend on the same pose.
+    model = load_gaussian_ply(disk["ply"])
+    p = {k: torch.as_tensor(np.array(v, np.float32), device=dev) for k, v in model.items()}
+    cc = load_config(disk["cfg_path"]).camera
+    cam = Camera(fx=cc.fx, fy=cc.fy, cx=cc.cx, cy=cc.cy, width=cc.width, height=cc.height)
+    rcfg = RasterConfig(tile=16, tile_capacity=1024, max_dup=16, chunk=128)
+    T0 = torch.as_tensor(viewer.orbit_poses(model["means"], VIEWER_FRAMES, 0.5)[0], device=dev)
+    with torch.no_grad():
+        prep = preprocess(p["means"], p["rgb"], p["quats"], p["logit_opacities"],
+                          p["log_scales"], torch.ones(len(model["means"]), dtype=torch.bool,
+                                                      device=dev), T0, cam)
+        bins = bin_gaussians(prep, cam, rcfg)
+        k3 = render_binned(prep, bins, cam, rcfg).color
+        plain = render_tiled(prep, bins, cam, rcfg).color
+    png = cv2.cvtColor(cv2.imread(os.path.join(tmp, "viewer_orbit", "view_0000.png")),
+                       cv2.COLOR_BGR2RGB)
+    want = (np.clip(k3.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+    checks.record("viewer: orbit frame 0 PNG against the 8-bit K3 render (levels)",
+                  float(np.abs(png.astype(np.int64) - want).max()), 0.0)
+    checks.record("viewer: K3 against the plain blend on orbit frame 0 (colour)",
+                  float((k3 - plain).abs().max()), 2e-3)
+    checks.record("viewer: orbit frame 0 is not blank (colour std)", float(k3.std()), 1e-3,
+                  ok=float(k3.std()) > 1e-3)
+    print(f"# phase 28 viewer: ms per frame (render + PNG write) {json.dumps(ms)} over "
+          f"{len(model['means'])} splats at {cc.width}x{cc.height}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return {"ms": ms, "launches": [launches["orbit"], launches["replay"]]}
+
+
+def phase_web_viewer(torch, checks, dev, system) -> dict:
+    """Phase 29: ``ViewerServer.from_system`` over phase 19's System, served
+    on 127.0.0.1 at an ephemeral port: the page, the state, a ``splat`` and
+    a ``map`` render decoding at the camera's size, one K3 launch per splat
+    request, and the ms per request."""
+    import threading
+    import urllib.request
+    from http.server import HTTPServer
+
+    import cv2
+
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.apps.viewer_web import ViewerServer
+
+    srv = ViewerServer.from_system(system)
+    httpd = HTTPServer(("127.0.0.1", 0), srv.handler())
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+
+    def post(state):
+        req = urllib.request.Request(url + "/render", data=json.dumps(state).encode(),
+                                     method="POST")
+        return urllib.request.urlopen(req, timeout=120).read()
+
+    def decode(buf):
+        return cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+
+    W, H = system.cam.width, system.cam.height
+    try:
+        page = urllib.request.urlopen(url + "/", timeout=60).read()
+        state = json.loads(urllib.request.urlopen(url + "/state", timeout=60).read())
+        checks.record("web viewer: page and state served", 0.0, 0.0,
+                      ok=b"orbit" in page and state["width"] == W and state["mode"] == "splat")
+        post(dict(state, yaw=0.2))  # warm
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        shapes, t0 = [], time.perf_counter()
+        for i in range(WEB_REQUESTS):
+            shapes.append(decode(post(dict(state, yaw=0.1 * i, pitch=0.05 * i))).shape)
+        splat_ms = (time.perf_counter() - t0) / WEB_REQUESTS * 1e3
+        launches = _launches_since_reset(torch)
+        t0 = time.perf_counter()
+        img_map = decode(post(dict(state, mode="map")))
+        map_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    checks.record(f"web viewer: {WEB_REQUESTS} splat JPEGs decode at {W}x{H}", 0.0, 0.0,
+                  ok=all(s == (H, W, 3) for s in shapes))
+    checks.record("web viewer: the map JPEG decodes and is drawn", 0.0, 0.0,
+                  ok=img_map is not None and img_map.shape == (H, W, 3)
+                  and float(img_map.std()) > 1.0)
+    checks.record(f"web viewer: blend_forward launches == {WEB_REQUESTS}",
+                  launches["blend_forward"], WEB_REQUESTS,
+                  ok=launches["blend_forward"] == WEB_REQUESTS)
+    print(f"# phase 29 web viewer: ms per request (render, JPEG, HTTP) splat {splat_ms:.2f}, "
+          f"map {map_ms:.2f}; launches {json.dumps(launches)}", flush=True)
+    return {"splat_ms": splat_ms, "map_ms": map_ms, "launches": [launches]}
+
+
+def phase_entry(torch, checks, dev) -> dict:
+    """Phase 30: ``graft_entry.entry()``: its ``(loss, color)`` through K3
+    against the same fn with the plain blend (colour 2e-3 absolute, loss
+    1e-3 relative), two calls bitwise, a backward through K6 with finite
+    gradients, and the ms of a forward and of a forward and backward."""
+    from gsorb_slam_tpu_torch import _build, graft_entry, raster
+
+    fn, args = graft_entry.entry()
+    kernel_render = raster.render_binned
+    raster.render_binned = raster.render_tiled  # entry() binds its render at the call
+    try:
+        plain_fn, _ = graft_entry.entry()
+    finally:
+        raster.render_binned = kernel_render
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with torch.no_grad():
+        loss, color = fn(*args)
+        loss2, color2 = fn(*args)
+    fwd_launches = _launches_since_reset(torch)
+    with torch.no_grad():
+        loss_p, color_p = plain_fn(*args)
+    checks.record("entry: colour against the plain blend", float((color - color_p).abs().max()),
+                  2e-3)
+    checks.record("entry: loss against the plain blend (relative)", rel_err(loss, loss_p), 1e-3)
+    checks.record("entry: two calls bitwise", 0.0, 0.0,
+                  ok=bool(torch.equal(loss, loss2) and torch.equal(color, color2)))
+    checks.record("entry: blend_forward launches == 2", fwd_launches["blend_forward"], 2,
+                  ok=fwd_launches["blend_forward"] == 2)
+    params = [a.detach().clone().requires_grad_(True) for a in args]
+    _build.reset_launches()
+    fn(*params)[0].backward()
+    bwd_launches = _launches_since_reset(torch)
+    finite = all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in params)
+    checks.record("entry: backward through K6 finite", 0.0, 0.0,
+                  ok=finite and float(params[0].grad.abs().sum()) > 0)
+    checks.record("entry: blend_backward launches == 1", bwd_launches["blend_backward"], 1,
+                  ok=bwd_launches["blend_backward"] == 1)
+
+    def fwd_bwd():
+        ps = [a.detach().requires_grad_(True) for a in args]
+        fn(*ps)[0].backward()
+
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: fn(*args), 10)
+    fwd_bwd_ms = time_ms(torch, fwd_bwd, 10)
+    print(f"# phase 30 entry: loss {float(loss):.4f} (plain {float(loss_p):.4f}), forward "
+          f"{fwd_ms:.3f} ms, forward + backward {fwd_bwd_ms:.3f} ms at 320x240, 20,000 splats",
+          flush=True)
+    return {"fwd_ms": fwd_ms, "fwd_bwd_ms": fwd_bwd_ms,
+            "launches": [fwd_launches, bwd_launches]}
+
+
+def phase_dryrun(torch, checks) -> dict:
+    """Phase 31: ``graft_entry.dryrun_multichip`` over every card (one rank a
+    card, NCCL): finite losses and pose, the ranks equal, one mapping
+    ``all_reduce`` and one per tracking iteration, K3 = K6 = 1 and K1 = K2f
+    = K2b = 3 launches on each rank; the losses and the pose within 1e-4 of
+    the same dry run on the CPU (gloo ranks, the plain versions)."""
+    from gsorb_slam_tpu_torch import graft_entry
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    results, _ = _quiet_call(graft_entry.dryrun_multichip, n)
+    seconds = time.perf_counter() - t0
+    r0 = results[0]
+    ok = all(math.isfinite(r["loss"]) and math.isfinite(r["track_loss"])
+             and np.isfinite(r["T_cw"]).all() and r["loss"] == r0["loss"]
+             and np.array_equal(r["T_cw"], r0["T_cw"]) for r in results)
+    checks.record(f"dryrun_multichip({n}): finite losses and pose, ranks equal", 0.0, 0.0, ok=ok)
+    cpu, _ = _quiet_call(graft_entry.dryrun_multichip, n, "cpu")  # the plain versions, gloo
+    checks.record("dryrun_multichip: mapping loss against the CPU's (relative)",
+                  abs(r0["loss"] - cpu[0]["loss"]) / abs(cpu[0]["loss"]), 1e-4)
+    checks.record("dryrun_multichip: tracking loss and pose against the CPU's",
+                  max(abs(r0["track_loss"] - cpu[0]["track_loss"]),
+                      float(np.abs(r0["T_cw"] - cpu[0]["T_cw"]).max())), 1e-4)
+    want = {"blend_forward": 1, "blend_backward": 1, "fused_track_fast": 3,
+            "preprocess_fwd": 3, "preprocess_bwd": 3}
+    for rank, r in enumerate(results):
+        checks.record(f"dryrun_multichip: all_reduce calls == 4 (rank {rank})",
+                      r["collectives"]["all_reduce"], 4, ok=r["collectives"]["all_reduce"] == 4)
+        checks.record(f"dryrun_multichip: launches {json.dumps(want)} (rank {rank})", 0.0, 0.0,
+                      ok=all(r["launches"][k] == v for k, v in want.items()))
+    print(f"# phase 31 dryrun_multichip({n}) over NCCL: loss {r0['loss']:.4f}, tracking loss "
+          f"{r0['track_loss']:.4f}, collectives {json.dumps(r0['collectives'])}, launches "
+          f"{json.dumps(r0['launches'])}, {seconds:.1f} s (the ranks' start included)",
+          flush=True)
+    return {"seconds": seconds, "launches": [r["launches"] for r in results]}
+
+
+def phase_lpips(torch, checks, dev, system, frame, tmp: str) -> dict:
+    """Phase 32: LPIPS with seeded random weights (the real ones are not in
+    the repository) written to a temporary ``.npz``, on phase 19's System's
+    render of the first frame and its gt at VGA: the card against the CPU
+    (1e-4 relative), identical images below 1e-6, ``metrics.lpips`` through
+    ``GSORB_LPIPS_WEIGHTS`` equal to ``lpips_pair``, TF32 off, ms per pair."""
+    from gsorb_slam_tpu_torch.ops import lpips as LP
+    from gsorb_slam_tpu_torch.ops import metrics as MM
+
+    rng = np.random.default_rng(0)
+    shapes = [(11, 3, 64), (5, 64, 192), (3, 192, 384), (3, 384, 256), (3, 256, 256)]
+    w = {}
+    for i, (k, cin, cout) in enumerate(shapes):
+        w[f"conv{i}_w"] = rng.normal(0, 0.05, (k, k, cin, cout)).astype(np.float32)
+        w[f"conv{i}_b"] = rng.normal(0, 0.01, cout).astype(np.float32)
+        w[f"lin{i}_w"] = rng.uniform(0, 1, cout).astype(np.float32)
+    path = os.path.join(tmp, "lpips_alex.npz")
+    np.savez(path, **w)
+    with torch.no_grad():
+        pred = torch.clamp(system.render_view(system.trajectory[0].T_cw).color, 0, 1)
+    target = torch.as_tensor(np.asarray(frame.rgb, np.float32), device=dev)
+    w_card, w_cpu = LP.load_lpips_weights(path, dev), LP.load_lpips_weights(path, "cpu")
+    d_card = float(LP.lpips_pair(pred, target, w_card))
+    tf32 = torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32
+    d_cpu = float(LP.lpips_pair(pred.cpu(), target.cpu(), w_cpu))
+    d_same = float(LP.lpips_pair(pred, pred, w_card))
+    old = os.environ.get("GSORB_LPIPS_WEIGHTS")
+    os.environ["GSORB_LPIPS_WEIGHTS"] = path
+    try:
+        MM.reset_lpips()
+        d_metric = MM.lpips(pred, target)
+    finally:
+        MM.reset_lpips()
+        if old is None:
+            del os.environ["GSORB_LPIPS_WEIGHTS"]
+        else:
+            os.environ["GSORB_LPIPS_WEIGHTS"] = old
+    checks.record("lpips: card against the CPU (relative)", abs(d_card - d_cpu) / abs(d_cpu),
+                  1e-4, ok=abs(d_card - d_cpu) <= 1e-4 * abs(d_cpu) and d_cpu > 0)
+    checks.record("lpips: identical images", abs(d_same), 1e-6)
+    checks.record("lpips: metrics.lpips equal to lpips_pair", abs(d_metric - d_card), 0.0)
+    checks.record("lpips: TF32 off on the card's convolutions", float(tf32), 0.0)
+    ms = time_ms(torch, lambda: LP.lpips_pair(pred, target, w_card), 10)
+    print(f"# phase 32 LPIPS (random weights) at {pred.shape[1]}x{pred.shape[0]}: card "
+          f"{d_card:.6f}, CPU {d_cpu:.6f}, {ms:.3f} ms per pair", flush=True)
+    return {"ms": ms}
+
+
+def phase_train_vocab(torch, checks, tmp: str) -> dict:
+    """Phase 33: ``scripts.train_vocab`` on the card into a temporary
+    ``--out``: exit 0, the file loads back with the trained word count, and
+    how many of the packaged vocabulary's node descriptors it reproduces
+    (recorded: descriptors on the card may differ from the CPU's on a few
+    rows); its seconds."""
+    from gsorb_slam_tpu_torch.frontend.vocab import default_vocabulary, load_orbvoc_text
+    from gsorb_slam_tpu_torch.scripts import train_vocab
+
+    out = os.path.join(tmp, "ORBvoc_card.txt")
+    t0 = time.perf_counter()
+    rc, text = _quiet_call(train_vocab.main, ["--out", out])
+    seconds = time.perf_counter() - t0
+    voc = load_orbvoc_text(out) if rc == 0 else None
+    trained = int(text.split("vocabulary: ")[1].split()[0]) if "vocabulary: " in text else -1
+    checks.record("train_vocab: exit 0, the file loads with its word count", 0.0, 0.0,
+                  ok=voc is not None and voc.n_words == trained > 0)
+    ref = default_vocabulary()
+    same = 0.0
+    if voc is not None:
+        n = min(len(voc.node_desc), len(ref.node_desc))
+        same = float((voc.node_desc[:n] == ref.node_desc[:n]).all(1).mean())
+    print(f"# phase 33 train_vocab on the card: {trained} words (packaged {ref.n_words}), "
+          f"{same:.4f} of the node descriptors equal to the packaged file's, {seconds:.1f} s",
+          flush=True)
+    return {"seconds": seconds, "n_words": trained, "same": same}
+
+
+def phase_debug_loop(torch, checks, loop_events) -> dict:
+    """Phase 34: ``scripts.debug_loop``'s ``main`` on the card: exit 0, the
+    verify diagnostics printed, and the loop fires with phase 23's events
+    (the same scene and settings)."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.scripts import debug_loop
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rc, text = _quiet_call(debug_loop.main, [])
+    seconds = time.perf_counter() - t0
+    launches = _launches_since_reset(torch)
+    events = [ln for ln in text.splitlines() if ln.startswith("loop_events:")]
+    fired = events[-1].split(":", 1)[1].strip() if events else ""
+    checks.record("debug_loop: exit 0 and verify's diagnostics printed", 0.0, 0.0,
+                  ok=rc == 0 and "bow_matches=" in text and "ransac_inliers=" in text)
+    checks.record("debug_loop: the loop fires as in phase 23", 0.0, 0.0,
+                  ok=fired not in ("", "[]") and fired == str(loop_events))
+    print(f"# phase 34 debug_loop: loop events {fired} (phase 23: {loop_events}), "
+          f"{seconds:.1f} s; launches {json.dumps(launches)}; its probe: "
+          + " | ".join(ln for ln in text.splitlines() if ln.startswith("probe")), flush=True)
+    return {"seconds": seconds, "launches": [launches]}
+
+
+def phase_disk_tools(torch, checks, tmp: str) -> dict:
+    """Phase 35: ``scripts.make_tum_disk`` writes MTD_FRAMES TUM-like VGA
+    frames generated on the card in the TUM and the ScanNet layouts (one
+    render cache), ``slam.dataset`` reads them back; ``scripts.pose2traj``
+    turns the ScanNet poses into ``groundtruth.txt`` rows equal to them."""
+    from gsorb_slam_tpu_torch.scripts import make_tum_disk, pose2traj
+    from gsorb_slam_tpu_torch.slam import dataset as D
+
+    cache = os.path.join(tmp, "mtd_cache")
+    roots = {f: os.path.join(tmp, f"mtd_{f}") for f in ("tum", "scannet")}
+    t0 = time.perf_counter()
+    rcs = [_quiet_call(make_tum_disk.main, ["--out", roots[f], "--frames", str(MTD_FRAMES),
+                                            "--format", f, "--cache-dir", cache])[0]
+           for f in roots]
+    seconds = time.perf_counter() - t0
+    tum = D.open_dataset("tum", roots["tum"], 5000.0)
+    scan = D.open_dataset("scannet", roots["scannet"], 5000.0)
+    ok = rcs == [0, 0] and len(tum) == len(scan) == MTD_FRAMES
+    for ds in (tum, scan):
+        for i in range(len(ds)):
+            fr = ds[i]
+            ok &= fr.rgb.shape == (480, 640, 3) and bool((fr.depth > 0).mean() > 0.5)
+            ok &= fr.gt_T_cw is not None and bool(np.isfinite(fr.gt_T_cw).all())
+    checks.record(f"make_tum_disk: {MTD_FRAMES} VGA frames read back in both layouts", 0.0, 0.0,
+                  ok=ok)
+    rc, _ = _quiet_call(pose2traj.main, [roots["scannet"]])
+    rows = np.loadtxt(os.path.join(roots["scannet"], "groundtruth.txt"), ndmin=2)
+    err = max(float(np.abs(rows[i, 1:].reshape(4, 4)
+                           - np.loadtxt(os.path.join(roots["scannet"], "pose", f"{i}.txt"))).max())
+              for i in range(MTD_FRAMES)) if rows.shape[0] == MTD_FRAMES else math.inf
+    checks.record("pose2traj: groundtruth.txt rows against the pose files", err, 1e-6,
+                  ok=rc == 0 and err <= 1e-6)
+    print(f"# phase 35 make_tum_disk: {MTD_FRAMES} TUM-like VGA frames in two layouts "
+          f"{seconds:.1f} s; pose2traj wrote {rows.shape[0]} rows", flush=True)
+    return {"seconds": seconds}
+
+
 def profile_call(torch, fn, best_s: float, what: str) -> dict | None:
     """One call of ``fn`` under torch.profiler (``profiling.common.profile_call``):
     the kernels' device time and launches, its share of the profiled call's
@@ -2590,19 +2993,35 @@ def main() -> int:
 
     # ---- 19-20. the disk path and the render path's leftovers ----
     with tempfile.TemporaryDirectory() as tmp:
-        phase_disk(torch, checks, dev, sysres["frames"], tmp)
+        disk = phase_disk(torch, checks, dev, sysres["frames"], tmp)
         phase_scale_inits(torch, checks, dev, sysres["frames"], tmp)
 
         # ---- 21-23. the ORB frontend, the ORB System and loop closing ----
         fe_res = phase_frontend(torch, checks, dev)
         phase_orb_system(torch, checks, dev, fe_res["frames"])
-        phase_loop(torch, checks, dev)
+        loop = phase_loop(torch, checks, dev)
 
         # ---- 24-27. the stereo and monocular entry points ----
         stereo = phase_stereo_system(torch, checks, dev)
         mono = phase_mono_system(torch, checks, dev)
         phase_sensor_modules(torch, checks, dev, stereo, mono)
         phase_sensor_apps(torch, checks, dev, stereo["frames"], os.path.join(tmp, "tum"), tmp)
+
+        # ---- 28-35. the viewers, the graft entry points, LPIPS and the tools ----
+        tools = [phase_viewer(torch, checks, dev, disk, tmp),
+                 phase_web_viewer(torch, checks, dev, disk["system"]),
+                 phase_entry(torch, checks, dev), phase_dryrun(torch, checks),
+                 phase_lpips(torch, checks, dev, disk["system"], sysres["frames"][0], tmp),
+                 phase_train_vocab(torch, checks, tmp),
+                 phase_debug_loop(torch, checks, loop["events"]),
+                 phase_disk_tools(torch, checks, tmp)]
+        del disk["system"]
+        tool_launches = {}
+        for res in tools:
+            for counts in res.get("launches", []):
+                for k, v in counts.items():
+                    tool_launches[k] = tool_launches.get(k, 0) + v
+        print(f"# phases 28-35 launches: {json.dumps(tool_launches)}", flush=True)
 
     with torch.no_grad():
         k1_ms = time_ms(torch, lambda: tracking_loss_grad(
@@ -2759,13 +3178,15 @@ def main() -> int:
           f"pose cotangent: {nz_k2b:.0f} of {slots_t}", flush=True)
 
     def entry(name, source, replaces, launches_n, err, ms, plain_ms, b, by):
-        # The count of the kernel's main path plus the stereo System's (phase 24).
+        # The count of the kernel's main path plus the stereo System's (phase
+        # 24) and phases 28-35's (the viewers, the entry points, the tools).
         counter = {"K1": "fused_track_fast", "K2f": "preprocess_fwd", "K2b": "preprocess_bwd",
                    "K3": "blend_forward", "K4": "blend_flat_fwd", "K5": "blend_flat_bwd",
                    "K6": "blend_backward", "K7": "fused_track_exact", "K8": "paired_track",
                    "K9": "fused_track_ablate"}[name.split()[0]]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches_n + stereo["launches"][counter], "max_abs_err": err,
+                "launches": launches_n + stereo["launches"][counter]
+                + tool_launches.get(counter, 0), "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                 "library_ms": None}
 
@@ -2805,7 +3226,7 @@ def main() -> int:
     for k in kernels:
         print(f"# {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}), {k['launches']} launches on its "
-              f"main path and the stereo System's", flush=True)
+              f"main path, the stereo System's and phases 28-35's", flush=True)
     print("# library_ms: null for every kernel: no single PyTorch call computes a "
           "depth-ordered alpha blend with its stop rules, its backward, or the EWA "
           "projection's pose adjoint", flush=True)

@@ -7,8 +7,10 @@ Loads ``GaussianModel.ply`` and a TUM-format trajectory, renders every
 the JAX package's replay raster configuration (tile 16, capacity 1024,
 max_dup 16, chunk 128; K3 on the card, its plain version with ``--cpu``)
 and reports PSNR / SSIM / depth L1 against the dataset as one JSON line: an
-independent check of a run's artifacts. LPIPS needs pretrained AlexNet
-weights that the repository does not hold; ``--lpips`` reports that.
+independent check of a run's artifacts. ``--lpips`` adds LPIPS
+(``ops.lpips``, on the render's device) where its AlexNet weights exist
+(``GSORB_LPIPS_WEIGHTS``); the repository does not hold them, and without
+them the result says so.
 
 Usage:
     python -m gsorb_slam_tpu_torch.apps.replay --ply out/GaussianModel.ply \\

@@ -58,6 +58,21 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternions ``[..., 4]`` (w, x, y, z)."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
 def pose_to_matrix(quat: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     """(quat ``[...,4]``, trans ``[...,3]``) -> homogeneous ``T [..., 4, 4]``,
     the differentiable bridge from the optimized pose leaves to the

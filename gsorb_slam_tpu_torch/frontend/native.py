@@ -2,10 +2,12 @@
 ``gsorb_slam_tpu/frontend/native.py``).
 
 ``native/gsorb_native.cpp`` holds the host-sequential pieces of the
-runtime. The port binds the two it calls: the exact 3-nearest-neighbour
-grid search of the splat scale initializers and the ORB quad-tree keypoint
-distribution (``DistributeOctTree``). The timestamp association is
-``slam.dataset.associate_timestamps`` in Python, as in the JAX loaders. The port compiles that source itself at first use,
+runtime. The port binds the exact 3-nearest-neighbour grid search of the
+splat scale initializers, the ORB quad-tree keypoint distribution
+(``DistributeOctTree``) and the greedy timestamp association
+(:func:`associate_timestamps_native`; the loaders associate with
+``slam.dataset.associate_timestamps`` in Python, as the JAX loaders do). The
+port compiles that source itself at first use,
 with ``g++ -O3 -fPIC -shared -std=c++17``, into ``build/native/`` at the
 repository root (``build/`` is in ``.gitignore``), under a name that
 carries a hash of the source and flags, and never loads or writes ``native/libgsorb_native.so``
@@ -39,6 +41,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "exact_knn3": [_FP, _U8P, ctypes.c_int, _FP],
     "quadtree_distribute": [_FP, _FP, _FP, ctypes.c_int, _F, _F, _F, _F, ctypes.c_int, _U8P],
+    "associate_timestamps": [ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+                             ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_double,
+                             ctypes.POINTER(ctypes.c_int32), ctypes.c_int],
 }
 
 
@@ -85,6 +90,20 @@ def library() -> ctypes.CDLL:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def associate_timestamps_native(a: np.ndarray, b: np.ndarray,
+                                max_dt: float = 0.02) -> list[tuple[int, int]]:
+    """Greedy nearest-timestamp pairs ``(i, j)`` of the sorted stamps ``a``
+    and ``b`` within ``max_dt``, each ``b`` used once (the native loop over a
+    window of 5 around the moving lower bound)."""
+    a = np.ascontiguousarray(a, np.float64)
+    b = np.ascontiguousarray(b, np.float64)
+    out = np.zeros(2 * len(a), np.int32)
+    n = library().associate_timestamps(_ptr(a, ctypes.c_double), len(a),
+                                       _ptr(b, ctypes.c_double), len(b), max_dt,
+                                       _ptr(out, ctypes.c_int32), len(a))
+    return [(int(out[2 * i]), int(out[2 * i + 1])) for i in range(n)]
 
 
 def exact_knn3_native(pts: np.ndarray, valid: np.ndarray) -> np.ndarray:

@@ -8,8 +8,9 @@ Hamming argmin) over all of a frame's descriptors at once. Reads and
 writes the text format of the reference's ``ORBvoc.txt``
 (``System::LoadVocabulary``, ``src/System.cc:86-96``).
 :func:`default_vocabulary` loads this package's own copy of the JAX
-package's ``assets/ORBvoc_synth.txt``. Training (``build_vocabulary``)
-belongs to the tooling and is not ported yet.
+package's ``assets/ORBvoc_synth.txt``. :func:`build_vocabulary` trains a
+tree (hierarchical binary k-medians, on the host in numpy);
+``scripts/train_vocab.py`` is the tool that writes the packaged copy.
 
 Scoring: L1, DBoW2's default in ORB-SLAM2:
 ``s(v, w) = 1 - 0.5 * |v/|v| - w/|w||_1`` over L1-normalized tf-idf vectors.
@@ -102,6 +103,87 @@ def score_l1(v1: dict[int, float], v2: dict[int, float]) -> float:
         if y is not None:
             s += abs(x) + abs(y) - abs(x - y)
     return 0.5 * s
+
+
+def _unpack_bits(desc_u32: np.ndarray) -> np.ndarray:
+    """[N, 8] uint32 -> [N, 256] uint8 bits."""
+    b = desc_u32.astype(np.uint32)
+    bits = ((b[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1).astype(np.uint8)
+    return bits.reshape(len(desc_u32), 256)
+
+
+def _pack_bits(bits: np.ndarray) -> np.ndarray:
+    """[N, 256] bits -> [N, 8] uint32 (the inverse of :func:`_unpack_bits`)."""
+    w = bits.reshape(-1, 8, 32).astype(np.uint32)
+    return (w << np.arange(32, dtype=np.uint32)).sum(axis=2).astype(np.uint32)
+
+
+def build_vocabulary(
+    descriptors: np.ndarray | torch.Tensor,
+    k: int = 6,
+    L: int = 3,
+    seed: int = 0,
+    iters: int = 4,
+) -> Vocabulary:
+    """Hierarchical binary k-medians (the DBoW2 training algorithm) over
+    ``descriptors`` ``[N, 8]``: ``np.uint32``, or the frontend's ``int32``
+    words (a tensor or an array), which carry the same bits.
+
+    The centres are drawn by ``np.random.default_rng(seed).choice`` in the
+    recursion's depth-first order, so a seed gives the same tree as the JAX
+    package's ``build_vocabulary``."""
+    if isinstance(descriptors, torch.Tensor):
+        descriptors = descriptors.detach().cpu().numpy()
+    descriptors = np.ascontiguousarray(descriptors)
+    if descriptors.dtype == np.int32:
+        descriptors = descriptors.view(np.uint32)
+    rng = np.random.default_rng(seed)
+    bits = _unpack_bits(descriptors)
+
+    nodes_desc = [np.zeros(256, np.uint8)]  # root placeholder
+    children: list[list[int]] = [[]]
+    word_of: list[int] = [-1]
+    leaf_counts: list[int] = []
+
+    def cluster(idx: np.ndarray, depth: int, parent: int) -> None:
+        if depth == L or len(idx) <= 1:
+            # leaf: the parent becomes a word
+            word_of[parent] = len(leaf_counts)
+            leaf_counts.append(len(idx))
+            return
+        kk = min(k, len(idx))
+        centers = bits[rng.choice(idx, kk, replace=False)].astype(np.float32)
+        for _ in range(iters):
+            assign = np.abs(bits[idx][:, None, :] - centers[None]).sum(-1).argmin(1)
+            for c in range(kk):
+                sel = idx[assign == c]
+                if len(sel):
+                    centers[c] = (bits[sel].mean(0) > 0.5).astype(np.float32)
+        assign = np.abs(bits[idx][:, None, :] - centers[None]).sum(-1).argmin(1)
+        for c in range(kk):
+            sel = idx[assign == c]
+            if len(sel) == 0:
+                continue
+            node_id = len(nodes_desc)
+            nodes_desc.append((centers[c] > 0.5).astype(np.uint8))
+            children.append([])
+            word_of.append(-1)
+            children[parent].append(node_id)
+            cluster(sel, depth + 1, node_id)
+
+    cluster(np.arange(len(bits)), 0, 0)
+
+    ch = np.full((len(nodes_desc), k), -1, np.int32)
+    for i, c in enumerate(children):
+        ch[i, : len(c)] = c[:k]
+    # idf weights
+    counts = np.maximum(np.array(leaf_counts, np.float32), 1.0)
+    weights = np.maximum(np.log(len(bits) / counts), 1e-3)
+    return Vocabulary(
+        k=k, L=L, children=ch, node_desc=_pack_bits(np.stack(nodes_desc)),
+        word_id=np.array(word_of, np.int32), weights=weights.astype(np.float32),
+        n_words=len(leaf_counts),
+    )
 
 
 def save_orbvoc_text(voc: Vocabulary, path: str) -> None:

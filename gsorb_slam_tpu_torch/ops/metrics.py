@@ -3,8 +3,9 @@
 PSNR (``src/Utils.cc:33-37``), 5-scale MS-SSIM with the standard weights
 (the reference's TorchScript pytorch-msssim module) and the masked depth L1
 (``scripts/replay.py:333-336``), in PyTorch on the device of the images.
-SSIM is :func:`gsorb_slam_tpu_torch.ops.losses.ssim`. LPIPS needs AlexNet
-weights the repository does not hold, so :func:`lpips` reports NaN.
+SSIM is :func:`gsorb_slam_tpu_torch.ops.losses.ssim`. :func:`lpips` is
+:mod:`gsorb_slam_tpu_torch.ops.lpips` wherever its AlexNet weights exist,
+else NaN (the repository does not hold them).
 :func:`truncation_weight_report` says how much of the blended weight the
 tile capacity's truncation removes.
 """
@@ -86,12 +87,33 @@ def depth_l1(
     return ((pred_depth - gt_depth).abs() * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
+# The loaded LPIPS weights by (file, device); reset_lpips() empties it.
+_LPIPS_MODEL: dict = {}
+
+
+def reset_lpips() -> None:
+    """Forget the loaded LPIPS weights (the next call looks them up anew)."""
+    _LPIPS_MODEL.clear()
+
+
 def lpips(pred: torch.Tensor, target: torch.Tensor) -> float:
-    """LPIPS (AlexNet): its weights are not in the repository, so this warns
-    and reports NaN, as the JAX package does without them."""
-    del pred, target
-    warnings.warn("LPIPS weights unavailable; reporting NaN")
-    return math.nan
+    """LPIPS (AlexNet) between ``[H, W, 3]`` images in [0, 1], computed on
+    ``pred``'s device with the weights of
+    :func:`~gsorb_slam_tpu_torch.ops.lpips.default_weights_path`, loaded
+    once per file and device. Without weights it warns and reports NaN, as
+    the JAX package does without weights and without torchmetrics."""
+    from gsorb_slam_tpu_torch.ops import lpips as LP
+
+    path = LP.default_weights_path()
+    if path is None:
+        warnings.warn("LPIPS weights unavailable (set GSORB_LPIPS_WEIGHTS); reporting NaN")
+        return math.nan
+    pred = torch.as_tensor(pred, dtype=torch.float32)
+    key = (path, pred.device)
+    if key not in _LPIPS_MODEL:
+        _LPIPS_MODEL[key] = LP.load_lpips_weights(path, pred.device)
+    target = torch.as_tensor(target, dtype=torch.float32, device=pred.device)
+    return float(LP.lpips_pair(pred, target, _LPIPS_MODEL[key]))
 
 
 def truncation_weight_report(
@@ -123,4 +145,5 @@ def truncation_weight_report(
     }
 
 
-__all__ = ["psnr", "ssim", "ms_ssim", "depth_l1", "lpips", "truncation_weight_report"]
+__all__ = ["psnr", "ssim", "ms_ssim", "depth_l1", "lpips", "reset_lpips",
+           "truncation_weight_report"]

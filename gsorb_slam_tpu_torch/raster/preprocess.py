@@ -60,6 +60,18 @@ def rotation_entries(quats: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return r00, r01, r02, r10, r11, r12, r20, r21, r22
 
 
+def covariance_3d(quats: torch.Tensor, log_scales: torch.Tensor,
+                  scale_modifier: float) -> torch.Tensor:
+    """World-frame covariance ``R S S^T R^T`` ``[C, 3, 3]``
+    (``forward.cu:118-152``), written out element by element in float32;
+    :func:`preprocess` computes the same entries inline."""
+    r = rotation_entries(quats)
+    s = torch.exp(log_scales) * scale_modifier  # [C, 3]
+    m = [[r[3 * i + j] * s[:, j] for j in range(3)] for i in range(3)]  # R diag(s)
+    return torch.stack([torch.stack([m[i][0] * m[k][0] + m[i][1] * m[k][1] + m[i][2] * m[k][2]
+                                     for k in range(3)], -1) for i in range(3)], -2)
+
+
 def preprocess(
     means: torch.Tensor,
     rgb: torch.Tensor,

@@ -171,12 +171,15 @@ class LoopCloser:
         self.consistency = new_consistency
         return detected
 
-    def verify(self, kf_query, kf_match, frontend, cam=None) -> Optional[np.ndarray]:
+    def verify(self, kf_query, kf_match, frontend, cam=None,
+               debug: bool = False) -> Optional[np.ndarray]:
         """Geometric check: ``SearchByBoW`` between the keyframes, RANSAC
         Horn on the matched map points (``Sim3Solver``), three refits on a
         shrinking 3D threshold, then with ``cam`` ``SearchBySim3`` and the
         bidirectional image-plane refinement (``Optimizer::OptimizeSim3``).
-        Returns the world-frame correction or None."""
+        Returns the world-frame correction or None. ``debug`` prints the
+        match, inlier and growth counts of each stage (the JAX method's
+        lines)."""
         dev = frontend.device
         voc = self.db.vocab
         _w1, _t1, n1 = voc.transform_with_nodes(kf_query.feats.descriptors, kf_query.feats.valid)
@@ -191,6 +194,10 @@ class LoopCloser:
             if p1 >= 0 and p2 >= 0 and frontend.pt_valid[p1] and frontend.pt_valid[p2]:
                 pairs.append((p1, p2))
                 kp_pairs.append((i, idx2[i]))
+        if debug:
+            print(f"    verify[{kf_query.kf_id}->{kf_match.kf_id}]: "
+                  f"bow_matches={int(mv.sum())} mp_pairs={len(pairs)} "
+                  f"(min {self.min_inliers})", flush=True)
         if len(pairs) < self.min_inliers:
             return None
         pairs = np.array(pairs)
@@ -210,6 +217,8 @@ class LoopCloser:
         t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
         res = S3.ransac_sim3(t(np.concatenate([x1, pad])), t(np.concatenate([x2, pad])),
                              t(pvalid, torch.bool), self.seed, fix_scale=self.fix_scale)
+        if debug:
+            print(f"    verify: ransac_inliers={int(res.n_inliers)}", flush=True)
         if int(res.n_inliers) < self.min_inliers:
             return None
         # Iterative inlier refinement, the OptimizeSim3 analog: re-gate on
@@ -221,6 +230,8 @@ class LoopCloser:
         for th in (0.10, 0.07, 0.05):
             d = np.linalg.norm(x2 - (s * (x1 @ R.T) + tt), axis=-1)
             inl = d < th
+            if debug:
+                print(f"    verify: refit th={th} inliers={int(inl.sum())}", flush=True)
             if inl.sum() < self.min_inliers:
                 return None
             a, b = x1[inl], x2[inl]
@@ -264,6 +275,8 @@ class LoopCloser:
             t(frontend.scale_factors))
         m12 = m12.cpu().numpy()
         grown = np.nonzero(m12 >= 0)[0]
+        if debug:
+            print(f"    verify: SearchBySim3 grew {len(grown)} matches", flush=True)
         if len(grown):
             gp = np.stack([grown, m12[grown]], axis=1)
             kp_pairs = np.concatenate([kp_pairs, gp])

@@ -12,7 +12,14 @@ Tolerances (the JAX package's own for its sharded paths,
 ``tests/test_parallel.py``): the 2-rank mapping step's loss within 1e-4
 relative and its means and colours after Adam within 1e-6; the 2-rank
 tracking's loss within 1e-4 relative and its pose within 5e-5. Replicas are
-bitwise equal."""
+bitwise equal.
+
+The mesh convergence parity (``tests/test_parallel.py``'s, marked slow
+there) runs here on four ranks: 32 single-device ``map_window`` iterations
+and 32 four-rank ``parallel_window_step``s from the same seeded map must
+both bring the window loss below 0.8x the start, the mesh within 1.2x the
+single device + 1e-3; the port's starting window loss is within 2e-3
+relative of the JAX ``window_loss`` of the same map and window."""
 
 import dataclasses
 import os
@@ -36,13 +43,33 @@ from gsorb_slam_tpu.parallel.tracking import strided_tile_perm as jstrided_tile_
 from gsorb_slam_tpu.raster import RasterConfig as JRasterConfig
 from gsorb_slam_tpu.raster import bin_gaussians as jbin
 from gsorb_slam_tpu.raster import preprocess as jpreprocess
+from gsorb_slam_tpu.raster.binning import TileBins as JTileBins
 from gsorb_slam_tpu.raster.tiled import render_tiled as jrender_tiled
+from gsorb_slam_tpu.slam.mapping import _mapping_loss as j_mapping_loss
 from gsorb_slam_tpu.slam.mapping import WindowFrames as JWindowFrames
 from gsorb_slam_tpu.slam.mapping import seed_from_frame as jseed_from_frame
 from gsorb_slam_tpu.slam.tracking import FeatureMatches as JFeatureMatches
 from gsorb_slam_tpu.slam.tracking import track_frame as jtrack_frame
+from gsorb_slam_tpu.splat.gaussians import GaussianMap as JGaussianMap
 from gsorb_slam_tpu.splat.gaussians import empty_map as jempty_map
+from gsorb_slam_tpu_torch.core.camera import Camera
+from gsorb_slam_tpu_torch.core.config import MappingConfig
+from gsorb_slam_tpu_torch.interop import (
+    gaussian_map_from_numpy,
+    gaussian_map_to_numpy,
+    window_frames_from_numpy,
+)
 from gsorb_slam_tpu_torch.parallel import strided_tile_perm
+from gsorb_slam_tpu_torch.raster import (
+    RasterConfig,
+    bin_gaussians,
+    preprocess,
+    render,
+    render_tiled,
+)
+from gsorb_slam_tpu_torch.raster.binning import TileBins
+from gsorb_slam_tpu_torch.slam.mapping import map_window, mapping_loss, seed_from_frame
+from gsorb_slam_tpu_torch.splat.gaussians import empty_map
 
 from tests import torch_parallel_workers as W
 
@@ -234,3 +261,112 @@ def test_system_use_mesh_two_ranks(tmp_path):
     assert np.abs(r0["map"]["adam_m"]["rgb"]).sum() > 0
     assert r0["n_active"] > 1000
     assert r0["paired_track_view"] == (False, 16)
+
+
+CONV_RCFG = dict(tile=16, tile_capacity=2048, max_dup=16, chunk=128, chunk_budget=128)
+CONV_STEPS = 32
+
+
+def convergence_case():
+    """``tests/test_parallel.py::test_mesh_window_convergence_parity``'s
+    window, made by the port on the CPU: 1,500 random splats from
+    ``default_rng(3)`` rendered from four views 3 cm apart (64x48), a map
+    seeded from view 0 (stride 2), each view's bins of that map. Returns
+    the map and the frames as numpy arrays."""
+    cam = Camera(**MAP_CAM)
+    mcfg = MappingConfig(max_gaussians=4096)
+    rcfg = RasterConfig(**CONV_RCFG)
+    rng = np.random.default_rng(3)
+    N = 1500
+    means = np.stack([rng.uniform(-1, 1, N), rng.uniform(-0.8, 0.8, N),
+                      rng.uniform(1.5, 3.0, N)], -1).astype(np.float32)
+    rgb = rng.uniform(0.1, 1.0, (N, 3)).astype(np.float32)
+    quats = rng.normal(size=(N, 4)).astype(np.float32)
+    lop = np.full(N, 5.0, np.float32)
+    lsc = np.log(rng.uniform(0.04, 0.1, (N, 3)).astype(np.float32))
+    t = torch.as_tensor
+    poses, colors, depths = [], [], []
+    with torch.no_grad():
+        for i in range(4):
+            T = torch.eye(4)
+            T[0, 3] = 0.03 * i
+            out = render(t(means), t(rgb), t(quats), t(lop), t(lsc),
+                         torch.ones(N, dtype=torch.bool), T, cam, rcfg)
+            poses.append(T)
+            colors.append(torch.clamp(out.color, 0, 1))
+            depths.append(torch.where(out.alpha > 0.5, out.median_depth, torch.zeros(())))
+        gm0 = seed_from_frame(empty_map(mcfg.max_gaussians, "cpu"), colors[0], depths[0],
+                              poses[0], cam, mcfg, stride=2)
+        bins = [bin_gaussians(preprocess(gm0.means, gm0.rgb, gm0.quats, gm0.logit_opacities,
+                                         gm0.log_scales, gm0.active, T, cam), cam, rcfg)
+                for T in poses]
+    frames = {"colors": torch.stack(colors).numpy(), "depths": torch.stack(depths).numpy(),
+              "poses": torch.stack(poses).numpy(),
+              "bins_indices": torch.stack([b.indices for b in bins]).numpy(),
+              "bins_counts": torch.stack([b.counts for b in bins]).numpy(), "n_frames": 4}
+    return gaussian_map_to_numpy(gm0), frames
+
+
+def jax_window_loss(gm: dict, frames: dict) -> float:
+    """The JAX test's ``window_loss`` of the map ``gm`` (numpy) over
+    ``frames`` (numpy), jitted."""
+    cam = JCamera(**MAP_CAM)
+    mcfg = JMappingConfig(max_gaussians=4096)
+    rcfg = JRasterConfig(**CONV_RCFG)
+    jgm = jax.tree.map(jnp.asarray, JGaussianMap(**gm))
+
+    def loss(g, colors, depths, poses, bidx, bcnt):
+        total = 0.0
+        for i in range(4):
+            prep = jpreprocess(g.means, g.rgb, g.quats, g.logit_opacities, g.log_scales,
+                               g.active, poses[i], cam, mcfg.scale_modifier)
+            bins = JTileBins(indices=bidx[i], counts=bcnt[i], n_dropped=jnp.zeros((), jnp.int32))
+            out = jrender_tiled(prep, bins, cam, rcfg, bg=mcfg.background_color)
+            total = total + j_mapping_loss(g, out, colors[i], depths[i], mcfg, False)
+        return total / 4.0
+
+    return float(jax.jit(loss)(jgm, *(jnp.asarray(frames[k]) for k in (
+        "colors", "depths", "poses", "bins_indices", "bins_counts"))))
+
+
+def _window_loss(gm, frames, cam, mcfg, rcfg) -> float:
+    """The mean mapping loss over the window's frames (the plain blend)."""
+    total = 0.0
+    with torch.no_grad():
+        for i in range(frames.colors.shape[0]):
+            prep = preprocess(gm.means, gm.rgb, gm.quats, gm.logit_opacities, gm.log_scales,
+                              gm.active, frames.poses[i], cam, mcfg.scale_modifier)
+            bins = TileBins(indices=frames.bins_indices[i], counts=frames.bins_counts[i],
+                            n_dropped=frames.bins_counts.new_zeros(()))
+            out = render_tiled(prep, bins, cam, rcfg, bg=mcfg.background_color)
+            total += float(mapping_loss(gm, out, frames.colors[i], frames.depths[i], mcfg, False))
+    return total / frames.colors.shape[0]
+
+
+def test_mesh_window_convergence_parity(tmp_path):
+    """Map quality parity of the two mapping modes at equal optimizer steps:
+    the single device's one-frame-per-iteration ``map_window`` and the
+    four-rank batched ``parallel_window_step`` both converge the window
+    loss, to a similar level (the JAX test's three assertions)."""
+    gm_np, frames_np = convergence_case()
+    ranks = Ranks(tmp_path, "window_steps", 4, gm=gm_np, frames=frames_np, cam=MAP_CAM,
+                  rcfg=CONV_RCFG, steps=CONV_STEPS)
+    cam, mcfg = Camera(**MAP_CAM), MappingConfig(max_gaussians=4096)
+    rcfg = RasterConfig(**CONV_RCFG)
+    gm0 = gaussian_map_from_numpy(gm_np, device="cpu")
+    frames = window_frames_from_numpy(frames_np, device="cpu")
+    loss0 = _window_loss(gm0, frames, cam, mcfg, rcfg)
+    assert loss0 == pytest.approx(jax_window_loss(gm_np, frames_np), rel=2e-3)
+    ids = np.random.default_rng(0).integers(0, 4, CONV_STEPS).tolist()
+    with torch.no_grad():
+        gm_s, _ = map_window(gm0, frames, ids, cam, mcfg, rcfg)
+    loss_s = _window_loss(gm_s, frames, cam, mcfg, rcfg)
+    results = ranks.results()
+    for r in results[1:]:
+        _assert_maps_bitwise(results[0]["map"], r["map"])
+    assert results[0]["all_reduce"] == CONV_STEPS
+    loss_m = _window_loss(gaussian_map_from_numpy(results[0]["map"], device="cpu"), frames, cam,
+                          mcfg, rcfg)
+    assert loss_s < 0.8 * loss0, (loss_s, loss0)
+    assert loss_m < 0.8 * loss0, (loss_m, loss0)
+    assert loss_m < 1.2 * loss_s + 1e-3, (loss_m, loss_s)

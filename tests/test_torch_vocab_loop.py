@@ -192,15 +192,14 @@ def descriptors_np(f):
     return f.descriptors.numpy().view(np.uint32)
 
 
-def test_detect_verify_correct_match_jax(loop_run, monkeypatch):
-    monkeypatch.setattr(draws, "draw_indices", jax_draws)
-    assert loop_run["det_t"] == loop_run["det_j"]
+def _carried(loop_run):
+    """The first detected loop's (query, match) ids, and the port's frontend
+    and loop closer carried across from the JAX System's checkpoint dict,
+    plus the state that dict does not hold (scale ranges, normals,
+    observers, parents)."""
     hits = [(i, c) for i, c in enumerate(loop_run["det_j"]) if c is not None]
     assert hits, "no loop detected"
-    q, m = hits[0]
     jfe, jlc, tlc = loop_run["jfe"], loop_run["jlc"], loop_run["tlc"]
-    # The port's frontend from the JAX System's checkpoint dict, then the
-    # state that dict does not hold (scale ranges, normals, observers).
     tfe = TG.GeometricFrontend(Camera(**CAM_KW), ORBConfig(n_features=300, n_levels=3),
                                device="cpu")
     tlc2 = TL.LoopCloser(tlc.db.vocab, min_inliers=12, min_gap=8)
@@ -214,6 +213,14 @@ def test_detect_verify_correct_match_jax(loop_run, monkeypatch):
         a.parent_id = b.parent_id
     by_t = {kf.kf_id: kf for kf in tfe.keyframes}
     by_j = {kf.kf_id: kf for kf in jfe.keyframes}
+    return hits[0], tfe, tlc2, by_t, by_j
+
+
+def test_detect_verify_correct_match_jax(loop_run, monkeypatch):
+    monkeypatch.setattr(draws, "draw_indices", jax_draws)
+    assert loop_run["det_t"] == loop_run["det_j"]
+    (q, m), tfe, tlc2, by_t, by_j = _carried(loop_run)
+    jfe, jlc = loop_run["jfe"], loop_run["jlc"]
     cam_j, cam_t = JCamera(**CAM_KW), Camera(**CAM_KW)
     Tj = jlc.verify(by_j[q], by_j[m], jfe, cam=cam_j)
     Tt = tlc2.verify(by_t[q], by_t[m], tfe, cam=cam_t)
@@ -238,6 +245,26 @@ def test_detect_verify_correct_match_jax(loop_run, monkeypatch):
     for k in cj:
         np.testing.assert_allclose(ct[k], cj[k], rtol=0, atol=1e-4)
         np.testing.assert_allclose(pt[k], pj[k], rtol=0, atol=1e-4)
+
+
+def test_verify_debug_lines_match_jax(loop_run, monkeypatch, capsys):
+    """``verify(debug=True)`` prints the JAX method's lines with the same
+    numbers (matches, RANSAC inliers, each refit, the SearchBySim3 growth),
+    and nothing without ``debug``."""
+    monkeypatch.setattr(draws, "draw_indices", jax_draws)
+    (q, m), tfe, tlc2, by_t, by_j = _carried(loop_run)
+    jfe, jlc = loop_run["jfe"], loop_run["jlc"]
+    capsys.readouterr()
+    Tj = jlc.verify(by_j[q], by_j[m], jfe, cam=JCamera(**CAM_KW), debug=True)
+    theirs = capsys.readouterr().out.splitlines()
+    Tt = tlc2.verify(by_t[q], by_t[m], tfe, cam=Camera(**CAM_KW), debug=True)
+    mine = capsys.readouterr().out.splitlines()
+    assert Tj is not None and Tt is not None
+    assert mine == theirs and len(mine) == 6
+    assert mine[0].startswith(f"    verify[{q}->{m}]: bow_matches=")
+    assert mine[-1].startswith("    verify: SearchBySim3 grew ")
+    tlc2.verify(by_t[q], by_t[m], tfe, cam=Camera(**CAM_KW))
+    assert capsys.readouterr().out == ""
 
 
 def test_system_closes_the_loop():

@@ -69,6 +69,34 @@ def window_step(rank: int, gm: dict, frames: dict, cam: dict, rcfg: dict) -> dic
     return {"map": _map_numpy(tgm), "loss": float(loss), "n_local": local.colors.shape[0]}
 
 
+def window_steps(rank: int, gm: dict, frames: dict, cam: dict, rcfg: dict, steps: int) -> dict:
+    """``steps`` ``parallel_window_step``s from the replicated map, each rank
+    on its shard (``local_idx`` rotating over it), every frame's pack slot
+    table built once."""
+    from gsorb_slam_tpu_torch.core.camera import Camera
+    from gsorb_slam_tpu_torch.core.config import MappingConfig
+    from gsorb_slam_tpu_torch.interop import gaussian_map_from_numpy, window_frames_from_numpy
+    from gsorb_slam_tpu_torch.parallel import (
+        make_mesh,
+        parallel_window_step,
+        replicate_map,
+        shard_frames,
+        window_pack_aux,
+    )
+    from gsorb_slam_tpu_torch.raster.types import RasterConfig
+
+    mesh = make_mesh()
+    tgm = replicate_map(gaussian_map_from_numpy(gm, device="cpu"), mesh)
+    local = shard_frames(window_frames_from_numpy(frames, device="cpu"), mesh)
+    aux = window_pack_aux(local, tgm.capacity)
+    mcfg, cam, rcfg = MappingConfig(max_gaussians=tgm.capacity), Camera(**cam), RasterConfig(**rcfg)
+    losses = []
+    for it in range(steps):
+        tgm, loss = parallel_window_step(tgm, local, mesh, cam, mcfg, rcfg, it, aux)
+        losses.append(float(loss))
+    return {"map": _map_numpy(tgm), "losses": losses, "all_reduce": mesh.collectives["all_reduce"]}
+
+
 def track(rank: int, gm: dict, gt_color, gt_depth, cam: dict, rcfg: dict, num_iters: int,
           rebin: tuple) -> dict:
     """``parallel_track_frame`` from the identity pose."""
@@ -149,4 +177,5 @@ def system(rank: int, n_frames: int, small: bool) -> dict:
     return result
 
 
-JOBS = {"window_step": window_step, "track": track, "system": system}
+JOBS = {"window_step": window_step, "window_steps": window_steps, "track": track,
+        "system": system}
