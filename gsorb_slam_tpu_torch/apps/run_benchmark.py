@@ -246,7 +246,9 @@ def main(argv=None) -> dict:
         "loop_events": len(sys_.loop_events),
         # Kernel build seconds during the run (the port's only compile).
         "compile_s": summ.get("compile_s"),
-        **{k: v for k, v in summ.items() if k.startswith(("phase_", "bin_"))},
+        **{k: v for k, v in summ.items() if k.startswith("bin_")},
+        # The ORB frontend's phases (the JAX app's phase_* keys).
+        **{f"phase_{k}": summ[f"phase_{k}"] for k in (sys_.fe.timings if sys_.fe else ())},
     }
     # The blended-weight effect of the tile capacity's truncation on the map
     # at the last pose, against an oracle capacity that drops nothing: the

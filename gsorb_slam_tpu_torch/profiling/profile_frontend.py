@@ -60,7 +60,7 @@ def main(argv: list[str] | None = None) -> dict:
     first_s = time.perf_counter() - t_c
     print(f"first extraction: {first_s:.3f}s", flush=True)
     fe.create_keyframe(feats0, fr0.depth, fr0.gt_T_cw, 0)
-    fe.timings.clear()
+    fe.tracer.clear()
 
     prof = cProfile.Profile()
     t_all = time.perf_counter()

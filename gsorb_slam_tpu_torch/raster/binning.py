@@ -27,6 +27,7 @@ import torch
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.raster.preprocess import Preprocessed
 from gsorb_slam_tpu_torch.raster.types import RasterConfig
+from gsorb_slam_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -65,7 +66,7 @@ def chunk_layout(bins: TileBins, n_tiles: int, chunk: int, chunk_budget: int) ->
     cap = bins.indices.shape[1]
     nchunks = torch.div(bins.counts.long() + K - 1, K, rounding_mode="floor")  # [T]
     cstart = torch.cat([nchunks.new_zeros(1), torch.cumsum(nchunks, 0)])  # [T + 1]
-    total = int(cstart[-1])
+    total = trace.wait(int, cstart[-1])
     if total > chunk_budget:
         raise ValueError(f"{total} live chunks exceed the chunk budget {chunk_budget}")
     cid = torch.arange(chunk_budget, device=dev)

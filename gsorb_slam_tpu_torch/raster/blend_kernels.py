@@ -52,6 +52,7 @@ from gsorb_slam_tpu_torch.raster.binning import TileBins, tile_grid_shape
 from gsorb_slam_tpu_torch.raster.naive import MIN_ALPHA, STOP_T
 from gsorb_slam_tpu_torch.raster.preprocess import Preprocessed
 from gsorb_slam_tpu_torch.raster.types import RasterConfig, RenderOutput
+from gsorb_slam_tpu_torch.utils import trace
 
 # Packed attribute rows (the opacity row is pre-multiplied by validity, so
 # dead instances blend with alpha exactly 0).
@@ -111,7 +112,7 @@ def flat_pack_grad_aux(indices: torch.Tensor, C: int) -> PackAux:
     ids = torch.arange(C, device=indices.device)
     starts = torch.searchsorted(sorted_ids, ids)
     ends = torch.searchsorted(sorted_ids, ids, right=True)
-    L = max(int((ends - starts).max()) if C else 0, 1)
+    L = max(trace.wait(int, (ends - starts).max()) if C else 0, 1)
     pos = starts[:, None] + torch.arange(L, device=indices.device)[None, :]
     table = torch.where(pos < ends[:, None], perm[torch.clamp(pos, max=n - 1)],
                         torch.full_like(pos, n))

@@ -17,6 +17,10 @@ layout and pack residuals are built once per :func:`map_window` call and
 reused by every iteration on that frame. The iteration loop runs on the host
 (one Python iteration per Adam step); the frame of each step is drawn from
 a ``torch.Generator``.
+
+Spans (``utils/trace.py``): ``map.layouts`` for the layouts of a
+:func:`map_window` call, ``map.iter`` for each of its iterations; the
+layouts' host reads are waits of the open layer.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from gsorb_slam_tpu_torch.splat.gaussians import (
     map_learning_rates,
     prune_low_opacity,
 )
+from gsorb_slam_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -203,7 +208,8 @@ def window_chunk_budget(bins_counts: torch.Tensor, chunk: int) -> int:
     the JAX package): the most live chunks of any frame plus 64, rounded up
     to a multiple of 1024, at least 1024 and at most 2^15."""
     K = chunk
-    nch = int(torch.div(bins_counts.long() + K - 1, K, rounding_mode="floor").sum(-1).max())
+    nch = trace.wait(
+        int, torch.div(bins_counts.long() + K - 1, K, rounding_mode="floor").sum(-1).max())
     b = max(-(-(nch + 64) // 1024) * 1024, 1024)
     return min(b, 1 << 15)
 
@@ -282,11 +288,13 @@ def map_window(
     them, one per iteration); returns (map, per-iteration losses).
     ``chunk_budget`` (default ``rcfg.chunk_budget``; callers pass
     :func:`window_chunk_budget`) must hold every frame's live chunks."""
-    layouts = window_layouts(frames, gm.capacity, cam, rcfg,
-                             int(chunk_budget or rcfg.chunk_budget))
+    with trace.span("map.layouts"):
+        layouts = window_layouts(frames, gm.capacity, cam, rcfg,
+                                 int(chunk_budget or rcfg.chunk_budget))
     losses = []
     for k in frame_ids:
-        gm, loss = map_step(gm, frames, k, layouts, cam, mcfg, rcfg, init_mode)
+        with trace.span("map.iter"):
+            gm, loss = map_step(gm, frames, k, layouts, cam, mcfg, rcfg, init_mode)
         losses.append(loss)
     return gm, torch.stack(losses)
 

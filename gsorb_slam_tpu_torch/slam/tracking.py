@@ -51,6 +51,7 @@ from gsorb_slam_tpu_torch.splat.gaussians import (
     init_pose_state,
     pose_adam_step,
 )
+from gsorb_slam_tpu_torch.utils import trace
 
 CHI2_INLIER = 5.991  # 95% chi^2 with 2 DoF (src/Render.cc:1081)
 
@@ -168,7 +169,7 @@ def track_frame(
         b = pair_bins(b, perm)
         return build_raw(b), b.counts, pack_gt_pairs(gt_color, gt_depth, cam, rcfg, perm)
 
-    use_features = bool(matches.valid.any())
+    use_features = trace.wait(bool, matches.valid.any())
 
     def chi2_masked(T_cw: torch.Tensor, inliers: torch.Tensor) -> torch.Tensor:
         chi2 = reprojection_chi2(T_cw, matches, cam)
@@ -230,7 +231,7 @@ def pose_loop(
     rebin_iters = tuple(r for r in rebin_iters if 0 < r < num_iters)
     quat0, trans0 = matrix_to_pose(T_cw_init.detach())
     ps = init_pose_state(quat0, trans0)
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("track.bins"):
         operands = episode(None)
 
     regate_iter = num_iters // 2  # feature_clear (src/Render.cc:1052)
@@ -243,26 +244,28 @@ def pose_loop(
     for i, seg_end in enumerate(list(sorted(rebin_iters)) + [num_iters]):
         if i > 0 and it < num_iters:
             # Rebin at the segment boundary, at the current pose.
-            with torch.no_grad():
+            with torch.no_grad(), trace.span("track.bins"):
                 operands = episode(pose_to_matrix(ps.quat, ps.trans))
         while it < seg_end:
-            loss, gq, gt_ = value_and_grad(ps.quat, ps.trans, inliers, *operands)
-            with torch.no_grad():
-                if it == regate_iter:  # halfway inlier re-gate at the current pose
-                    chi2_now = reprojection_chi2(pose_to_matrix(ps.quat, ps.trans), matches, cam)
-                    inliers = chi2_now < CHI2_INLIER
-                improved = torch.isfinite(loss) & (loss < best_loss)
-                best_q = torch.where(improved, ps.quat, best_q)
-                best_t = torch.where(improved, ps.trans, best_t)
-                best_loss = torch.where(improved, loss, best_loss)
-                converged = (
-                    tcfg.early_stop_delta > 0.0
-                    and bool((last_loss - loss).abs() < tcfg.early_stop_delta)
-                )
-                it = num_iters if converged else it + 1
-                ps = pose_adam_step(ps, gq, gt_, tcfg)
-                last_loss = loss
-                n_applied += 1
+            with trace.span("track.iter"):
+                loss, gq, gt_ = value_and_grad(ps.quat, ps.trans, inliers, *operands)
+                with torch.no_grad():
+                    if it == regate_iter:  # halfway inlier re-gate at the current pose
+                        chi2_now = reprojection_chi2(pose_to_matrix(ps.quat, ps.trans), matches,
+                                                     cam)
+                        inliers = chi2_now < CHI2_INLIER
+                    improved = torch.isfinite(loss) & (loss < best_loss)
+                    best_q = torch.where(improved, ps.quat, best_q)
+                    best_t = torch.where(improved, ps.trans, best_t)
+                    best_loss = torch.where(improved, loss, best_loss)
+                    converged = (
+                        tcfg.early_stop_delta > 0.0
+                        and trace.wait(bool, (last_loss - loss).abs() < tcfg.early_stop_delta)
+                    )
+                    it = num_iters if converged else it + 1
+                    ps = pose_adam_step(ps, gq, gt_, tcfg)
+                    last_loss = loss
+                    n_applied += 1
 
     with torch.no_grad():
         T_best = pose_to_matrix(best_q, best_t)

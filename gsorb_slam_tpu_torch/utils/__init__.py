@@ -1,3 +1,3 @@
-from gsorb_slam_tpu_torch.utils import drawing
+from gsorb_slam_tpu_torch.utils import drawing, trace
 
-__all__ = ["drawing"]
+__all__ = ["drawing", "trace"]
