@@ -60,6 +60,14 @@ def _gaussian_window(size: int, sigma: float) -> np.ndarray:
     return g / np.sum(g)
 
 
+@functools.lru_cache(maxsize=8)
+def _window_tensor(size: int, sigma: float, dtype: torch.dtype, device: torch.device
+                   ) -> torch.Tensor:
+    """The window on ``device``, uploaded once: a copy from the host inside
+    a CUDA graph capture would wait on the device, which a capture forbids."""
+    return torch.as_tensor(_gaussian_window(size, sigma), dtype=dtype, device=device)
+
+
 def _depthwise_blur(img: torch.Tensor, size: int, sigma: float) -> torch.Tensor:
     """Separable depthwise Gaussian filter over ``[..., H, W, C]`` with valid
     padding: two 1-D grouped convolutions. On the card cuDNN runs them in
@@ -67,7 +75,7 @@ def _depthwise_blur(img: torch.Tensor, size: int, sigma: float) -> torch.Tensor:
     lead = img.shape[:-3]
     H, W, c = img.shape[-3:]
     x = img.reshape((-1, H, W, c)).permute(0, 3, 1, 2)  # [N, C, H, W]
-    w = torch.as_tensor(_gaussian_window(size, sigma), dtype=img.dtype, device=img.device)
+    w = _window_tensor(size, sigma, img.dtype, img.device)
     x = torch.nn.functional.conv2d(x, w.reshape(1, 1, size, 1).expand(c, 1, size, 1), groups=c)
     x = torch.nn.functional.conv2d(x, w.reshape(1, 1, 1, size).expand(c, 1, 1, size), groups=c)
     return x.permute(0, 2, 3, 1).reshape(lead + x.shape[2:] + (c,))

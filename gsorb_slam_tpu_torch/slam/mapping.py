@@ -16,11 +16,15 @@ CUDA tensors, their plain versions on CPU tensors. Each window frame's chunk
 layout and pack residuals are built once per :func:`map_window` call and
 reused by every iteration on that frame. The iteration loop runs on the host
 (one Python iteration per Adam step); the frame of each step is drawn from
-a ``torch.Generator``.
+a ``torch.Generator``. On CUDA tensors each iteration replays two captured
+CUDA graphs, the loss and gradients and the Adam step
+(``slam/map_graph.py``); CPU tensors run the eager code.
 
 Spans (``utils/trace.py``): ``map.layouts`` for the layouts of a
-:func:`map_window` call, ``map.iter`` for each of its iterations; the
-layouts' host reads are waits of the open layer.
+:func:`map_window` call (and loading its graph), ``map.iter`` for each of
+its iterations; the layouts' host reads are waits of the open layer.
+Counters: ``map_graph_captures`` (graph pairs captured) and
+``map_graph_replays`` (iterations replayed).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from gsorb_slam_tpu_torch.raster.blend_kernels import PackAux, flat_pack_grad_au
 from gsorb_slam_tpu_torch.raster.flat_kernels import render_flat
 from gsorb_slam_tpu_torch.raster.preprocess import preprocess
 from gsorb_slam_tpu_torch.raster.types import RasterConfig, RenderOutput
+from gsorb_slam_tpu_torch.slam.map_graph import MapGraph, window_graph
 from gsorb_slam_tpu_torch.splat.gaussians import (
     PARAM_NAMES,
     GaussianMap,
@@ -229,28 +234,29 @@ def window_layouts(
     return layouts
 
 
-def map_loss_and_grads(
+def frame_loss_and_grads(
     gm: GaussianMap,
-    frames: WindowFrames,
-    k: int,
+    pose: torch.Tensor,
+    color: torch.Tensor,
+    depth: torch.Tensor,
     layout: FrameLayout,
     cam: Camera,
     mcfg: MappingConfig,
     rcfg: RasterConfig,
     init_mode: bool = False,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """The mapping loss on window frame ``k`` and its gradient w.r.t. the
-    five splat parameter groups."""
+    """The mapping loss on one frame (pose ``T_cw``, colour, depth and its
+    layout) and its gradient w.r.t. the five splat parameter groups."""
     params = {n: getattr(gm, n).detach().requires_grad_(True) for n in PARAM_NAMES}
     with torch.enable_grad():
         g2 = dataclasses.replace(gm, **params)
         prep = preprocess(
             g2.means, g2.rgb, g2.quats, g2.logit_opacities, g2.log_scales, g2.active,
-            frames.poses[k], cam, mcfg.scale_modifier,
+            pose, cam, mcfg.scale_modifier,
         )
         out = render_flat(prep, layout.cbins, cam, rcfg, bg=mcfg.background_color,
                           pack_aux=layout.pack_aux)
-        loss = mapping_loss(g2, out, frames.colors[k], frames.depths[k], mcfg, init_mode)
+        loss = mapping_loss(g2, out, color, depth, mcfg, init_mode)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return loss.detach(), {
         n: torch.zeros_like(p) if g is None else g
@@ -258,20 +264,64 @@ def map_loss_and_grads(
     }
 
 
+def map_loss_and_grads(
+    gm: GaussianMap,
+    frames: WindowFrames,
+    k: int,
+    layout: FrameLayout | MapGraph,
+    cam: Camera,
+    mcfg: MappingConfig,
+    rcfg: RasterConfig,
+    init_mode: bool = False,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The mapping loss on window frame ``k`` and its gradient w.r.t. the
+    five splat parameter groups. With a :class:`MapGraph` for ``layout``
+    (``gm`` its buffers) it is the graph's: the frame of its draw, picked
+    on the device."""
+    if isinstance(layout, MapGraph):
+        return layout.grads()
+    return frame_loss_and_grads(gm, frames.poses[k], frames.colors[k], frames.depths[k],
+                                layout, cam, mcfg, rcfg, init_mode)
+
+
 def map_step(
     gm: GaussianMap,
     frames: WindowFrames,
     k: int,
-    layouts: list[FrameLayout],
+    layouts: list[FrameLayout] | MapGraph,
     cam: Camera,
     mcfg: MappingConfig,
     rcfg: RasterConfig,
     init_mode: bool = False,
 ) -> tuple[GaussianMap, torch.Tensor]:
     """One mapping iteration on window frame ``k``: loss, gradients and one
-    masked Adam step. Returns (new map, loss)."""
+    masked Adam step. Returns (new map, loss); with a :class:`MapGraph` for
+    ``layouts``, its buffers, stepped in place."""
     loss, grads = map_loss_and_grads(gm, frames, k, layouts[k], cam, mcfg, rcfg, init_mode)
+    if isinstance(layouts, MapGraph):
+        return layouts.step(grads), loss
     return adam_step(gm, grads, map_learning_rates(mcfg)), loss
+
+
+def _window_graph(gm, frames, layouts, frame_ids, cam, mcfg, rcfg, init_mode) -> MapGraph:
+    """The window's :class:`MapGraph`. Its bodies look up ``adam_step`` and
+    the loss's functions by their module-level names when they run, so a
+    patched function is what gets captured; those functions are part of
+    the key."""
+
+    def grads_fn(g: MapGraph):
+        pose, color, depth, cbins, aux = g.draw()
+        loss, grads = frame_loss_and_grads(g.gm, pose, color, depth, FrameLayout(cbins, aux),
+                                           cam, mcfg, rcfg, init_mode)
+        g.record_loss(loss)
+        return loss, grads
+
+    def step_fn(g: MapGraph, grads):
+        g.write_state(adam_step(g.gm, grads, map_learning_rates(mcfg)))
+
+    observed = (cam, mcfg, rcfg, preprocess, render_flat, mapping_loss, l1_mapping, ssim,
+                adam_step)
+    return window_graph(gm, frames, layouts, frame_ids, init_mode, observed, grads_fn, step_fn)
 
 
 def map_window(
@@ -287,16 +337,24 @@ def map_window(
     """One Adam step on each window frame of ``frame_ids`` (the caller draws
     them, one per iteration); returns (map, per-iteration losses).
     ``chunk_budget`` (default ``rcfg.chunk_budget``; callers pass
-    :func:`window_chunk_budget`) must hold every frame's live chunks."""
+    :func:`window_chunk_budget`) must hold every frame's live chunks. On
+    CUDA tensors the iterations replay the window's :class:`MapGraph`;
+    the results are those of the eager loop, bit for bit."""
+    graph = None
     with trace.span("map.layouts"):
         layouts = window_layouts(frames, gm.capacity, cam, rcfg,
                                  int(chunk_budget or rcfg.chunk_budget))
-    losses = []
+        if gm.means.is_cuda and len(frame_ids):
+            graph = layouts = _window_graph(gm, frames, layouts, frame_ids, cam, mcfg, rcfg,
+                                            init_mode)
+    state, losses = (gm if graph is None else graph.gm), []
     for k in frame_ids:
         with trace.span("map.iter"):
-            gm, loss = map_step(gm, frames, k, layouts, cam, mcfg, rcfg, init_mode)
+            state, loss = map_step(state, frames, k, layouts, cam, mcfg, rcfg, init_mode)
         losses.append(loss)
-    return gm, torch.stack(losses)
+    if graph is not None:
+        return graph.result(gm, len(frame_ids))
+    return state, torch.stack(losses)
 
 
 def build_window_frames(

@@ -15,7 +15,8 @@ Equivalent of ``System`` / ``Tracking::TrackWithGaussian``
    graph correction, SearchAndFuse and a global BA),
 4. prune, a render at the tracked pose (K3) and densification,
 5. the optimization window (``slam/window.py``) and ``numIters`` mapping
-   Adam steps over it (``slam/mapping.py``: K4, K5).
+   Adam steps over it (``slam/mapping.py``: K4, K5), on the card replayed
+   as CUDA graphs (``slam/map_graph.py``).
 
 One host loop drives the device work, as in the JAX package; the keyframe
 images and cached tile bins live in fixed device pools, allocated once, so
@@ -117,7 +118,7 @@ SPANS = (
     "map.iter",
     "frame.wait", "frontend.wait", "track.wait", "kf.wait", "map.wait",
 )
-COUNTERS = ("splats_added", "kf_bins_refreshed")
+COUNTERS = ("splats_added", "kf_bins_refreshed", "map_graph_captures", "map_graph_replays")
 
 
 def _frame_span(method):

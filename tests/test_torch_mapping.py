@@ -52,8 +52,10 @@ from gsorb_slam_tpu_torch.interop import (
     window_frames_from_numpy,
 )
 from gsorb_slam_tpu_torch.ops import losses as L
-from gsorb_slam_tpu_torch.raster.binning import TileBins
+from gsorb_slam_tpu_torch.raster.binning import ChunkBins, TileBins
+from gsorb_slam_tpu_torch.raster.blend_kernels import sorted_segment_sum
 from gsorb_slam_tpu_torch.raster.types import RasterConfig, RenderOutput
+from gsorb_slam_tpu_torch.slam import map_graph as MG
 from gsorb_slam_tpu_torch.slam import mapping as M
 from gsorb_slam_tpu_torch.slam import window as W
 from gsorb_slam_tpu_torch.splat import gaussians as G
@@ -415,6 +417,37 @@ def test_map_window_matches_jax(window_scene, n_frames, iters, seed):
             assert torch.equal(getattr(gm_r, k), getattr(tgm, k)), k
     with pytest.raises(ValueError, match="chunk budget"):
         M.map_window(_tmap(jgm), tfr, [0], cam, mcfg, cfg, chunk_budget=4)
+
+
+@pytest.mark.parametrize("n_frames", [1, 3])
+def test_graph_frame_selection_is_each_frames_own(window_scene, n_frames):
+    """The mapping graph's pick of window frame k on the device
+    (``map_graph.select_frame``, from the frames and the stacked layouts)
+    gives ``frames.*[k]`` and ``layouts[k]`` exactly, for every k. The
+    table, padded to a common width, holds ``layouts[k]``'s own in front
+    and the segment sum's zero row behind, so the sorted segment sum over
+    it is the sum over ``layouts[k]``'s table, bit for bit."""
+    _, _, tfr = _window(window_scene, n_frames)
+    cam, cfg = Camera(**CAM_KW), RasterConfig(**CFG_KW)
+    layouts = M.window_layouts(tfr, 384, cam, cfg, 64)
+    L = max(lay.pack_aux.table.shape[1] for lay in layouts) + 3
+    stacked = MG.StackedLayouts.like(layouts[0], tfr.colors.shape[0], L)
+    stacked.fill(layouts)
+    n_slots = layouts[0].pack_aux.flat_idx.shape[0]
+    g = torch.randn((n_slots, 16), generator=torch.Generator().manual_seed(n_frames))
+    for k, lay in enumerate(layouts):
+        pose, color, depth, cbins, aux = MG.select_frame(
+            tfr.colors, tfr.depths, tfr.poses, stacked, torch.tensor([k]))
+        assert torch.equal(pose, tfr.poses[k])
+        assert torch.equal(color, tfr.colors[k])
+        assert torch.equal(depth, tfr.depths[k])
+        for f in dataclasses.fields(ChunkBins):
+            assert torch.equal(getattr(cbins, f.name), getattr(lay.cbins, f.name)), f.name
+        assert torch.equal(aux.flat_idx, lay.pack_aux.flat_idx)
+        own = lay.pack_aux.table.shape[1]
+        assert torch.equal(aux.table[:, :own], lay.pack_aux.table)
+        assert bool((aux.table[:, own:] == n_slots).all())
+        assert torch.equal(sorted_segment_sum(g, aux), sorted_segment_sum(g, lay.pack_aux))
 
 
 def test_window_chunk_budget():
