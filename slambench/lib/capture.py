@@ -8,7 +8,8 @@ them:
 - **Capture** for the check that decides ``correct``: on the frame the
   seed draws (or the first after it whose ORB frontend reaches its pose
   optimisation), the pose optimisation's inputs and answer
-  (``frontend.ba.pose_optimization`` inside ``process_frame``) and the
+  (``frontend.ba.pose_optimization`` inside ``process_frame``, with its
+  keywords: on a stereo frame ``obs_ur`` and ``bf``, the stereo edges) and the
   seed pose and matches that frame's tracking solve was handed; on the
   frame the seed draws, the tracking solve's inputs, every iteration's
   pose, inlier gate, loss and pose gradient, and the pose of each binning episode

@@ -19,8 +19,9 @@ parts:
   ``slam/geometric.py`` calls it): the pose the program's motion-only
   bundle adjustment returned against the reference's solve
   (``slambench.reference.pose``, float64) from the same predicted pose
-  and matches; the seed the tracking solve was handed against the
-  reference's (its pose where it keeps 10 inliers or more, else the
+  and matches (on a stereo frame with the same right-image coordinates:
+  the program's SGBM depth and stereo matches are taken as given); the
+  seed the tracking solve was handed against the reference's (its pose where it keeps 10 inliers or more, else the
   prediction); and the share of the handed match slots that differ from
   the reference's inliers in order. Poses in metres and rotation entries,
   the widest entry of the 3x4 gap;
@@ -155,9 +156,13 @@ MIN_SEED_INLIERS = 10  # fewer inliers and the motion model seeds the tracker
 
 def frontend_pose(rec: dict, st: Setting, dtype: torch.dtype) -> tuple[torch.Tensor,
                                                                       torch.Tensor]:
-    c = st.cam
+    """The reference's pose solve from the captured inputs; on a stereo
+    frame with the right-image coordinates and ``bf`` the program was
+    handed (its ORB stereo matches, taken as given)."""
+    c, opts = st.cam, rec["options"]
     return P.pose_only(rec["T_pred"].to(dtype), rec["world"].to(dtype), rec["obs_uv"],
-                       rec["inv_sigma2"], rec["valid"], c.fx, c.fy, c.cx, c.cy)
+                       rec["inv_sigma2"], rec["valid"], c.fx, c.fy, c.cx, c.cy,
+                       obs_ur=opts.get("obs_ur"), bf=opts.get("bf", 0.0))
 
 
 def _seed_and_matches(rec: dict, T: torch.Tensor, inliers: torch.Tensor
@@ -201,9 +206,7 @@ def frontend_numbers(rec: dict, st: Setting, control: bool = False) -> dict[str,
     """The program's (or, with ``control``, the TF32 reference's) pose
     optimisation, seed and matches against the float64 reference's."""
     opts = rec["options"]
-    if opts.get("obs_ur") is not None or any(
-            opts.get(k, d) != d for k, d in (("rounds", P.ROUNDS),
-                                              ("iters_per_round", P.ITERS))):
+    if any(opts.get(k, d) != d for k, d in (("rounds", P.ROUNDS), ("iters_per_round", P.ITERS))):
         return {"frontend": float("inf")}  # not the pose optimisation the reference follows
     T_ref, inl_ref = frontend_pose(rec, st, torch.float64)
     seed_ref, m_ref = _seed_and_matches(rec, T_ref, inl_ref)
@@ -219,8 +222,11 @@ def frontend_numbers(rec: dict, st: Setting, control: bool = False) -> dict[str,
     pose = float((T_p.double() - T_ref)[:3].abs().max())
     seed = float((seed_p.double() - seed_ref)[:3].abs().max())
     matches = _match_gap(m_p, m_ref)
-    return {"frontend": max(pose, seed, matches), "frontend.pose": pose, "frontend.seed": seed,
-            "frontend.matches": matches, "frontend.inliers": float(inl_ref.sum())}
+    out = {"frontend": max(pose, seed, matches), "frontend.pose": pose, "frontend.seed": seed,
+           "frontend.matches": matches, "frontend.inliers": float(inl_ref.sum())}
+    if opts.get("obs_ur") is not None:
+        out["frontend.stereo_edges"] = float((opts["obs_ur"] >= 0).sum())
+    return out
 
 
 # ------------------------------------------------------------------ tracking

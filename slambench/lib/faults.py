@@ -10,7 +10,9 @@ frontend's pose optimisation, the pose's Adam step, the map's Adam step),
 half of the batch left out with the mean taken over the rest (half of the
 tracking tiles, half of the mapping image), and an answer altered where it
 is produced (the tracked pose, the frontend's seed, 1 cm off). No cell runs
-on more than one chip, so there is no exchange to leave out.
+on more than one chip, so there is no exchange to leave out. A stereo cell
+can also lose its stereo edges (the pose optimisation called without the
+right-image coordinates): :func:`faults_for` lists a sensor's faults.
 """
 
 from __future__ import annotations
@@ -96,6 +98,24 @@ def pose_altered(setattr_: Callable) -> None:
     setattr_(T, "track_frame", altered)
 
 
+def stereo_edges_dropped(setattr_: Callable) -> None:
+    import gsorb_slam_tpu_torch.frontend.ba as BA
+
+    orig = BA.pose_optimization
+
+    def monocular(*a, obs_ur=None, bf=0.0, **k):
+        return orig(*a, **k)
+
+    setattr_(BA, "pose_optimization", monocular)
+
+
 FAULTS = {f.__name__: f for f in (
     frontend_step_unchanged, seed_altered, pose_step_unchanged, map_step_unchanged,
-    half_the_tracking_tiles, half_the_mapping_image, pose_altered)}
+    half_the_tracking_tiles, half_the_mapping_image, pose_altered, stereo_edges_dropped)}
+STEREO_ONLY = ("stereo_edges_dropped",)
+
+
+def faults_for(sensor: str) -> list[str]:
+    """The faults a cell of ``sensor`` (``"rgbd"`` or ``"stereo"``) can
+    have, by name."""
+    return sorted(f for f in FAULTS if sensor == "stereo" or f not in STEREO_ONLY)

@@ -1,5 +1,11 @@
 """One run of one cell (``slambench/run.py`` calls :func:`run_cell` once it
 has found the card; the harness tests call it on the CPU at a tiny size).
+
+A frame goes through the entry point of the configuration's sensor:
+``System.track_rgbd(colour, depth)`` (tensors on the device), or on a
+stereo configuration ``System.track_stereo(left, right)`` (float32 numpy
+in [0, 1], as ``KittiStereoDataset`` hands them). ``psnr_db`` compares
+against the (left) colour on the pixels with a true depth.
 """
 
 from __future__ import annotations
@@ -20,7 +26,13 @@ from slambench.lib import roofline
 from slambench.lib.capture import Hooks, clone_rows
 from slambench.lib.evaluate import ate_rmse
 from slambench.lib.scene import load_scene
-from slambench.lib.sequence import camera_from_config, frame_tensors, make_sequence
+from slambench.lib.sequence import (
+    camera_from_config,
+    frame_tensors,
+    make_sequence,
+    sensor_of,
+    stereo_pair,
+)
 from slambench.lib.trace import summarize, trace_file
 from slambench.reference import render as R
 
@@ -60,7 +72,8 @@ def _check_raster(system, cfg: dict) -> None:
 def _psnr(snapshot: dict, seq, poses: list[np.ndarray], frames: range, st: C.Setting,
           device: torch.device) -> float:
     """Mean PSNR over ``frames`` of the reference's render of the map
-    snapshot at the tracked poses, on the pixels with a depth reading."""
+    snapshot at the tracked poses against the (left) colour, on the pixels
+    with a true depth reading."""
     s = C.splats(snapshot)
     vals = []
     with torch.no_grad():
@@ -107,6 +120,7 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float, trace: bool,
     cfg = catalog.config(root, cell["config"])
     traffic = catalog.traffic(root, cell["traffic"])
     limits = catalog.limits(root, cell_name)
+    sensor = sensor_of(cfg)
     st = C.setting_from_config(cfg)
     rng = np.random.default_rng(seed)
     warm = int(traffic["warmup_frames"])
@@ -124,8 +138,8 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float, trace: bool,
     # Inputs: the scene, the path and the sensor, from the seed.
     cam = camera_from_config(cfg["system"])
     seq = make_sequence(load_scene(catalog.scene_path(root, traffic["scene"])), cam, traffic,
-                        seed, device)
-    log(f"sequence: {n_frames} frames {cam.width}x{cam.height}, "
+                        seed, device, sensor)
+    log(f"sequence: {sensor}, {n_frames} frames {cam.width}x{cam.height}, "
         f"depth zero share {float((seq.depths == 0).mean()):.4f}")
 
     marks.append(("sequence", time.perf_counter()))
@@ -149,8 +163,12 @@ def run_cell(root: Path, cell_name: str, seed: int, seconds: float, trace: bool,
             hooks.map_armed = True
         before = {k: system.timings.get(k, 0.0) for k in SPLIT + ("n_kf",)}
         t0 = time.perf_counter()
-        color, depth = frame_tensors(seq, i, device)
-        T = system.track_rgbd(color, depth, timestamp=float(seq.timestamps[i]))
+        if sensor == "stereo":
+            left, right = stereo_pair(seq, i)
+            T = system.track_stereo(left, right, timestamp=float(seq.timestamps[i]))
+        else:
+            color, depth = frame_tensors(seq, i, device)
+            T = system.track_rgbd(color, depth, timestamp=float(seq.timestamps[i]))
         t1 = time.perf_counter()
         poses.append(np.asarray(T, np.float64))
         splits.append((i, 1000.0 * (t1 - t0)) + tuple(

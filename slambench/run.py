@@ -12,11 +12,12 @@ in ``slambench/limits/<cell>.json`` and each metric is read by
 ``slambench/metrics/<metric>.py``. Adding a cell or a metric adds files.
 
 A run: generate the sequence on the card from the seed (uint8 colour and
-uint16 depth on the host), build ``System(config, frontend="orb")``, run
-the warm-up frames (frame 0's initialisation and one frame), then feed
-whole frames through ``System.track_rgbd`` for ``--seconds`` (upload and
-conversion included); the frame that crosses the mark is finished and
-counted. The run then goes on, untimed, until the ``eval_frames`` prefix
+uint16 depth on the host; a stereo configuration, ``"sensor": "stereo"``,
+adds the right view), build ``System(config, frontend="orb")``, run the
+warm-up frames (frame 0's initialisation and one frame), then feed whole
+frames through ``System.track_rgbd`` (``System.track_stereo`` on a stereo
+configuration) for ``--seconds`` (upload and conversion included); the
+frame that crosses the mark is finished and counted. The run then goes on, untimed, until the ``eval_frames`` prefix
 is done, for ATE and PSNR. With ``--trace 1`` it then profiles
 ``profiled_frames`` more frames. After the card's peak memory is read and
 the System is freed, the plain reference checks what the timed path

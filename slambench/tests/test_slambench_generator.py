@@ -106,7 +106,7 @@ def test_undistort_inverts_brown_conrady_inside_the_image():
     assert np.abs(ud - uu).max() < 0.05 and np.abs(vd - vv).max() < 0.05
 
 
-@pytest.mark.parametrize("cell_traffic", ["desk", "room0"])
+@pytest.mark.parametrize("cell_traffic", ["desk", "room0", "flat"])
 def test_traffic_files_name_a_scene(cell_traffic):
     t = json.loads((SB / "traffic" / f"{cell_traffic}.json").read_text())
     assert (SB / "scenes" / f"{t['scene']}.json").is_file()

@@ -33,6 +33,8 @@ EARLIER = {
     "kernels.map_roofline": "device_trace",
     "device.idle": "device_trace",
 }
+# Counters read after them (the mapping graphs' replays).
+LATER = {"mapping.graph_replay_share": ("program_counter", "%")}
 CELLS = ["tum1.desk", "replica.room0"]
 
 
@@ -45,8 +47,9 @@ def test_entries_in_the_benchmark():
     per_layer = bench["per_layer"]
     assert {m["name"]: m["source"] for m in per_layer[:len(EARLIER)]} == EARLIER
     new = {m["name"]: m for m in per_layer[len(EARLIER):]}
-    assert set(new) == set(SPAN_METRICS)
-    for name, (source, unit) in SPAN_METRICS.items():
+    assert set(new) == set(SPAN_METRICS) | set(LATER)
+    assert [w["name"] for w in bench["workloads"]] == CELLS
+    for name, (source, unit) in {**SPAN_METRICS, **LATER}.items():
         m = new[name]
         assert (m["source"], m["unit"], m["moves"], m["workloads"]) == (source, unit, "fps",
                                                                          CELLS)

@@ -38,6 +38,38 @@ def tiny_root(tmp: Path, cell: str = "tum1.desk", track_iters: int = 12, map_ite
     return root
 
 
+STEREO_CELL = "tiny_stereo.desk_stereo"
+
+
+def tiny_stereo_root(tmp: Path, gray: bool = True, **kw) -> Path:
+    """``tiny_root``'s ``tum1.desk`` and beside it a stereo cell
+    (``STEREO_CELL``) written into the temporary root only: ``tum1`` cut to
+    128 px as a rectified pair (``"sensor": "stereo"``, no distortion, the
+    baseline of ``Camera.bf / fx`` kept), the desk traffic with a gray
+    sensor, ``tum1.desk``'s limits."""
+    root = tiny_root(tmp, "tum1.desk", **kw)
+    sb = root / "slambench"
+    cfg = json.loads((sb / "configs" / "tum1.json").read_text())
+    sysc = cfg["system"]
+    sysc["Camera.bf"] = sysc["Camera.bf"] * 128.0 / 640.0
+    for k in ("k1", "k2", "p1", "p2", "k3"):
+        sysc[f"Camera.{k}"] = 0.0
+    cfg.update(name="tiny_stereo", sensor="stereo")
+    (sb / "configs" / "tiny_stereo.json").write_text(json.dumps(cfg))
+    tr = json.loads((sb / "traffic" / "desk.json").read_text())
+    tr["sensor"] = dict(tr["sensor"], gray=gray)
+    (sb / "traffic" / "desk_stereo.json").write_text(json.dumps(tr))
+    shutil.copy(sb / "limits" / "tum1.desk.json", sb / "limits" / f"{STEREO_CELL}.json")
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["workloads"].append({"name": STEREO_CELL, "config": "tiny_stereo",
+                               "traffic": "desk_stereo", "chips": 1,
+                               "why": "the stereo entry point at a tiny size"})
+    for m in bench["per_layer"]:
+        m["workloads"].append(STEREO_CELL)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    return root
+
+
 def short_init(monkeypatch, iters: int = 10) -> None:
     """Frame 0's warm-up mapping cut to ``iters`` iterations (the System's
     ``init_iters`` is not a configuration key), so a CPU run takes seconds."""

@@ -10,8 +10,8 @@
 #   control  3 runs with --control on fresh seeds (base+21 .. base+23): the
 #            TF32 control's numbers judged against the cell's limits beside
 #            the program's;
-#   faults   each fault of slambench/lib/faults.py planted once (seed
-#            base+31), at the cell's own size.
+#   faults   each fault of slambench/lib/faults.py that the cell's sensor
+#            can have, planted once (seed base+31), at the cell's own size.
 # Each run's standard output and error go to <out dir>/<cell>/<tag>.{out,err}
 # (default chiprun_out); a summary per run goes to standard output.
 set -u
@@ -50,7 +50,12 @@ for part in $parts; do
       done ;;
     faults)
       faults=$(python3 -c 'import sys; sys.path.insert(0, ".")
-from slambench.lib.faults import FAULTS; print(" ".join(FAULTS))')
+from pathlib import Path
+from slambench.lib import catalog
+from slambench.lib.faults import faults_for
+from slambench.lib.sequence import sensor_of
+cell = catalog.workload(catalog.load_benchmark(Path(".")), sys.argv[1])
+print(" ".join(faults_for(sensor_of(catalog.config(Path("."), cell["config"])))))' "$cell")
       for f in $faults; do
         run "fault_$f" --workload "$cell" --seed $((base + 31)) --seconds 5 --trace 0 --fault "$f"
       done ;;
