@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from gsorb_slam_tpu_torch.core.camera import Camera
@@ -192,36 +193,160 @@ class StereoMatches(NamedTuple):
     valid: torch.Tensor  # [NL] bool
 
 
-def compute_stereo_matches(
+STEREO_W = 5  # half the SAD window: 11 x 11 patches (Frame.cc's w)
+STEREO_L = 5  # the SAD search reaches +-5 px of the descriptor match (L)
+STEREO_MEDIAN = float(np.float32(1.5) * np.float32(1.4))  # 1.5f * 1.4f
+
+
+def round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """C's ``round``: the nearest integer, halves away from zero
+    (``torch.round`` takes halves to even)."""
+    t = torch.trunc(x)
+    return t + torch.where((x - t).abs() >= 0.5, torch.sign(x), torch.zeros_like(x))
+
+
+def stereo_max_disparity(bf: float, min_z: float) -> float:
+    """``maxD = mbf / minZ``, in float32 as the source computes it."""
+    return float(np.float32(bf) / np.float32(min_z))
+
+
+def stereo_candidates(
     fL: ORBFeatures,
     fR: ORBFeatures,
     bf: float,
     min_z: float,
     scale_factors: torch.Tensor,  # [n_levels] per-octave scale (1.2^l)
     max_dist: int = (TH_HIGH + TH_LOW) // 2,
-) -> StereoMatches:
-    """Sparse stereo depth by descriptor matching along rectified rows
-    (``Frame::ComputeStereoMatches``, ``src/Frame.cc``): candidates within a
-    +-2 * scale row band, disparity in (0, bf / min_z], octaves within one,
-    the best Hamming match (the first index on a tie) under ``thOrbDist`` =
-    (TH_HIGH + TH_LOW) / 2; depth = bf / disparity. As in the JAX package,
-    the reference's SAD sub-pixel refinement is left out (it needs the
-    image patches). Rectified pair: uL - uR = disparity > 0."""
-    max_d = bf / max(min_z, 1e-3)
+) -> MatchResult:
+    """The descriptor stage of ``Frame::ComputeStereoMatches``
+    (``src/Frame.cc``): a right keypoint is a candidate of the left one at
+    ``(uL, vL)`` where its row band, rows ``floor(vR - r)`` to ``ceil(vR +
+    r)`` with ``r = 2 * scale[octave_R]``, holds row ``vL`` (the source's
+    ``vRowIndices``), its octave is within one of the left one's and
+    ``uL - maxD <= uR <= uL`` (``minD = 0``, ``maxD = bf / min_z``). The
+    least Hamming distance wins, the first index on a tie, and is kept
+    under ``thOrbDist = (TH_HIGH + TH_LOW) / 2``."""
+    max_d = stereo_max_disparity(bf, min_z)
     D = hamming_matrix(fL.descriptors, fR.descriptors)
-    row_tol = 2.0 * scale_factors[torch.clamp(fL.octave, 0, scale_factors.shape[0] - 1).long()]
-    dv = (fL.uv[:, None, 1] - fR.uv[None, :, 1]).abs()
-    disp = fL.uv[:, None, 0] - fR.uv[None, :, 0]
+    r = 2.0 * scale_factors[torch.clamp(fR.octave, 0, scale_factors.shape[0] - 1).long()]
+    v_r = fR.uv[:, 1]
+    row = torch.floor(fL.uv[:, 1])[:, None]
+    u_l = fL.uv[:, 0][:, None]
+    u_r = fR.uv[:, 0][None, :]
     d_oct = (fL.octave[:, None] - fR.octave[None, :]).abs()
-    ok = ((dv <= row_tol[:, None]) & (disp > 0.0) & (disp <= max_d) & (d_oct <= 1)
+    ok = ((torch.floor(v_r - r)[None, :] <= row) & (row <= torch.ceil(v_r + r)[None, :])
+          & (u_r >= u_l - max_d) & (u_r <= u_l) & (d_oct <= 1)
           & fL.valid[:, None] & fR.valid[None, :])
     best, d_best = _best(torch.where(ok, D, _big(D)))
-    valid = d_best <= max_dist
-    uR = fR.uv[:, 0][best]
-    disparity = torch.clamp(fL.uv[:, 0] - uR, min=0.01)
-    zero = torch.zeros((), dtype=uR.dtype, device=uR.device)
-    return StereoMatches(u_right=torch.where(valid, uR, zero - 1.0),
-                         depth=torch.where(valid, bf / disparity, zero), valid=valid)
+    valid = d_best < max_dist
+    return MatchResult(idx2=torch.where(valid, best, -1), dist=d_best, valid=valid)
+
+
+def _patches(flat: torch.Tensor, off: torch.Tensor, h: torch.Tensor, w: torch.Tensor,
+             rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Pixels of the packed pyramid ``flat`` at level-local ``rows`` x
+    ``cols`` (broadcast; ``off``, ``h``, ``w`` per keypoint, shaped to
+    broadcast with them), clamped into the level."""
+    r = torch.minimum(torch.clamp(rows, min=0), h - 1)
+    c = torch.minimum(torch.clamp(cols, min=0), w - 1)
+    return flat[off + r * w + c]
+
+
+def compute_stereo_matches(
+    fL: ORBFeatures,
+    fR: ORBFeatures,
+    bf: float,
+    min_z: float,
+    scale_factors: torch.Tensor,  # [n_levels] per-octave scale (1.2^l)
+    levels_l: list,  # the left image's pyramid ([H_l, W_l] per level, extract_orb)
+    levels_r: list,  # the right image's
+    max_dist: int = (TH_HIGH + TH_LOW) // 2,
+) -> StereoMatches:
+    """Sparse stereo depth along rectified rows, ORB-SLAM2's
+    ``Frame::ComputeStereoMatches`` (``src/Frame.cc``) batched on the
+    features' device; the JAX package stops at the descriptor match.
+
+    :func:`stereo_candidates` picks each left keypoint's right match
+    (``min_z`` is the source's ``minZ``, the baseline ``bf / fx``). The
+    match is then refined on the unblurred pyramid level of the left
+    keypoint's octave: coordinates scaled by ``1 / scale`` and rounded
+    half away from zero; the source's column test (``scaleduR0 + L - w <
+    0`` or ``scaleduR0 + L + w + 1 >= cols`` drops the keypoint); the 11 x
+    11 left patch less its centre pixel against the right patches at
+    shifts -5..5, each less its own centre, by the L1 distance (summed in
+    float64, as OpenCV's ``norm``, then float32); a best shift at +-5
+    drops the keypoint, else a parabola through the three distances around
+    it moves ``uR`` by ``deltaR``, dropped beyond +-1. ``disparity = uL -
+    uR`` is kept in ``[0, maxD)`` (0 becomes 0.01) and ``depth = bf /
+    disparity``. Last, the median filter: a kept keypoint whose distance
+    is at least ``1.5 * 1.4`` times the median (the upper one) of the kept
+    distances is dropped. Dropped keypoints read ``u_right = -1``,
+    ``depth = 0`` and ``valid`` false (the source writes -1 to both).
+
+    The source's distances are whole numbers (8-bit pyramids), so its
+    truncation of the best distance to ``int`` changes nothing there; the
+    port's pyramid is float, and its distances are compared as floats.
+    Patch reads are clamped into the level: ORB's 19-pixel border keeps
+    every read of an extracted keypoint inside (where one would leave it,
+    the source's ``cv::Mat`` ranges would raise). Nothing is read on the
+    host."""
+    dev = fL.uv.device
+    cand = stereo_candidates(fL, fR, bf, min_z, scale_factors, max_dist)
+    max_d = stereo_max_disparity(bf, min_z)
+    n_lv = scale_factors.shape[0]
+    shapes = [tuple(lv.shape) for lv in levels_l]
+    starts = np.concatenate([[0], np.cumsum([h * w for h, w in shapes])[:-1]])
+    meta = torch.tensor([[int(o), h, w] for o, (h, w) in zip(starts, shapes)],
+                        dtype=torch.int64, device=dev)
+    flat_l = torch.cat([lv.reshape(-1) for lv in levels_l])
+    flat_r = torch.cat([lv.reshape(-1) for lv in levels_r])
+
+    lvl = torch.clamp(fL.octave, 0, n_lv - 1).long()
+    inv = (1.0 / scale_factors)[lvl]
+    u_l, v_l = fL.uv[:, 0], fL.uv[:, 1]
+    u_r0 = fR.uv[:, 0][torch.clamp(cand.idx2, min=0)]
+    su_l = round_half_away(u_l * inv)
+    sv_l = round_half_away(v_l * inv)
+    su_r0 = round_half_away(u_r0 * inv)
+    off, h, w = (meta[lvl, k] for k in range(3))
+    inside = ((su_r0 + STEREO_L - STEREO_W >= 0)
+              & (su_r0 + STEREO_L + STEREO_W + 1 < w.to(su_r0.dtype)))
+
+    win = torch.arange(-STEREO_W, STEREO_W + 1, device=dev)
+    shifts = torch.arange(-STEREO_L, STEREO_L + 1, device=dev)
+    rows = sv_l.long()[:, None, None] + win[None, :, None]  # [N, 11, 1]
+    o3, h3, w3 = off[:, None, None], h[:, None, None], w[:, None, None]
+    p_l = _patches(flat_l, o3, h3, w3, rows, su_l.long()[:, None, None] + win[None, None, :])
+    cols_r = (su_r0.long()[:, None, None, None] + shifts[None, :, None, None]
+              + win[None, None, None, :])  # [N, 11 shifts, 1, 11]
+    p_r = _patches(flat_r, o3[:, None], h3[:, None], w3[:, None], rows[:, None], cols_r)
+    c = STEREO_W
+    p_l = p_l - p_l[:, c:c + 1, c:c + 1]
+    p_r = p_r - p_r[:, :, c:c + 1, c:c + 1]
+    sad = (p_l[:, None] - p_r).abs().to(torch.float64).sum((-2, -1)).to(torch.float32)
+
+    best, d2 = _best(sad)  # the first least distance, as the source's strict "<"
+    interior = (best > 0) & (best < 2 * STEREO_L)
+    b = torch.clamp(best, 1, 2 * STEREO_L - 1)[:, None]
+    d1 = torch.gather(sad, 1, b - 1)[:, 0]
+    d3 = torch.gather(sad, 1, b + 1)[:, 0]
+    delta = (d1 - d3) / (2.0 * (d1 + d3 - 2.0 * d2))
+    u_best = scale_factors[lvl] * ((su_r0 + (best - STEREO_L).to(su_r0.dtype)) + delta)
+    disparity = u_l - u_best
+    kept = (cand.valid & inside & interior & (delta >= -1.0) & (delta <= 1.0)
+            & (disparity >= 0.0) & (disparity < max_d))
+    at_zero = disparity <= 0.0
+    disparity = torch.where(at_zero, torch.full_like(disparity, 0.01), disparity)
+    u_best = torch.where(at_zero, u_l - 0.01, u_best)
+
+    inf = torch.full_like(d2, float("inf"))
+    ranked = torch.sort(torch.where(kept, d2, inf)).values
+    median = ranked[torch.clamp(kept.sum() // 2, max=ranked.shape[0] - 1)]
+    valid = kept & (d2 < STEREO_MEDIAN * median)
+    zero = torch.zeros((), dtype=u_best.dtype, device=dev)
+    return StereoMatches(u_right=torch.where(valid, u_best, zero - 1.0),
+                         depth=torch.where(valid, torch.full_like(disparity, bf) / disparity,
+                                           zero), valid=valid)
 
 
 def _predict_level(dist3d, max_d, scale_factors):

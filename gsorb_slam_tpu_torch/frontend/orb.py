@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -231,9 +231,12 @@ def level_budgets(cfg: ORBConfig) -> np.ndarray:
     return budgets
 
 
-def extract_orb(gray: torch.Tensor, cfg: ORBConfig = ORBConfig()) -> ORBFeatures:
+def extract_orb(gray: torch.Tensor, cfg: ORBConfig = ORBConfig(),
+                levels: Optional[list] = None) -> ORBFeatures:
     """Full pyramid extraction of ``gray [H, W]`` (float32 in [0, 1]) on its
-    device; padded features of capacity ``cfg.n_features``."""
+    device; padded features of capacity ``cfg.n_features``. A ``levels``
+    list receives the unblurred pyramid images ``[H_l, W_l]`` the
+    extraction made (``ORBextractor::mvImagePyramid``), level 0 first."""
     H, W = gray.shape
     s = cfg.scale_factor
     budgets = level_budgets(cfg)
@@ -243,6 +246,8 @@ def extract_orb(gray: torch.Tensor, cfg: ORBConfig = ORBConfig()) -> ORBFeatures
         scale = s**level
         if level > 0:
             img = resize_linear(gray, int(round(H / scale)), int(round(W / scale)))
+        if levels is not None:
+            levels.append(img)
         uv, r, a, d, v = _extract_level(img, int(budgets[level]), cfg.ini_th_fast / 255.0,
                                         cfg.min_th_fast / 255.0)
         uvs.append(uv * scale)
@@ -257,17 +262,20 @@ def extract_orb(gray: torch.Tensor, cfg: ORBConfig = ORBConfig()) -> ORBFeatures
                        valid=torch.cat(vals), uv_raw=uv)
 
 
-def quadtree_refine(feats: ORBFeatures, cfg: ORBConfig = ORBConfig()) -> ORBFeatures:
+def quadtree_refine(feats: ORBFeatures, cfg: ORBConfig = ORBConfig(),
+                    read: Callable[[torch.Tensor], torch.Tensor] = torch.Tensor.cpu
+                    ) -> ORBFeatures:
     """The reference's ``DistributeOctTree`` selection over each level's
     candidates, by the native quad-tree (``frontend/native.py``) on the
     host: a level with more valid candidates than its budget keeps the
-    quad-tree's choice. A failed build of the native library raises."""
+    quad-tree's choice. A failed build of the native library raises.
+    ``read`` brings each field to the host (a caller may time it)."""
     from gsorb_slam_tpu_torch.frontend.native import quadtree_distribute
 
-    valid = feats.valid.cpu().numpy().copy()
-    uv = feats.uv.cpu().numpy()
-    resp = feats.response.cpu().numpy()
-    octv = feats.octave.cpu().numpy()
+    valid = read(feats.valid).numpy().copy()
+    uv = read(feats.uv).numpy()
+    resp = read(feats.response).numpy()
+    octv = read(feats.octave).numpy()
     inv = 1.0 / cfg.scale_factor
     weights = np.array([inv**level for level in range(cfg.n_levels)])
     budgets = np.round(cfg.n_features * weights / weights.sum()).astype(int)

@@ -31,7 +31,7 @@ reads their wall seconds.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -160,16 +160,19 @@ class GeometricFrontend:
     def _t(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
 
-    def _extract(self, gray) -> ORBFeatures:
+    def _extract(self, gray, levels: Optional[list] = None,
+                 read: Callable[[torch.Tensor], torch.Tensor] = torch.Tensor.cpu
+                 ) -> ORBFeatures:
         """ORB extraction on the device, keypoints undistorted
         (``Frame::UndistortKeyPoints``: descriptors stay sampled on the raw
         image, ``uv_raw`` keeps the raw coords for depth lookups), then the
-        native quad-tree selection."""
+        native quad-tree selection, its host reads through ``read``. A
+        ``levels`` list receives the pyramid images (``extract_orb``)."""
         feats = extract_orb(torch.as_tensor(gray, dtype=torch.float32, device=self.device),
-                            self.orb_cfg)
+                            self.orb_cfg, levels=levels)
         if not self.dist.is_zero():
             feats = feats._replace(uv=undistort_points(self.cam, self.dist, feats.uv))
-        return quadtree_refine(feats, self.orb_cfg)
+        return quadtree_refine(feats, self.orb_cfg, read=read)
 
     # ------------------------------------------------------------- tracking
 

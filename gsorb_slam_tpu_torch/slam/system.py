@@ -46,10 +46,13 @@ lost-mode tracking budget and try relocalization (BoW candidates and
 PnP). The loop closer runs when ``Debug.useLoop`` is set, with the
 packaged vocabulary unless one is passed.
 
-The other sensors, as in the JAX package: ``track_stereo`` makes dense
-depth with OpenCV's SGBM on the host and, with the ORB frontend, per-
-keypoint depths from ORB matches along the rectified rows, then runs
-``track_rgbd`` (so the stereo path runs the RGB-D kernels).
+The other sensors: ``track_stereo`` makes dense depth with OpenCV's SGBM
+on the host, as in the JAX package, and, with the ORB frontend, per-
+keypoint depths by ORB-SLAM2's ``Frame::ComputeStereoMatches`` on the
+device (the descriptor match along the rectified rows, the SAD sub-pixel
+refinement and the median filter; the JAX package stops at the
+descriptor match), then runs ``track_rgbd`` (so the stereo path runs the
+RGB-D kernels).
 ``track_monocular`` (ORB frontend only) bootstraps with the H / F
 initializer, then tracks by ORB alone through the classic OK / LOST state
 machine with relocalization; it seeds the splat map with the triangulated
@@ -117,8 +120,10 @@ SPANS = (
     "map.prune", "map.bins", "map.render", "map.densify", "map.window", "map.layouts",
     "map.iter",
     "frame.wait", "frontend.wait", "track.wait", "kf.wait", "map.wait",
+    "fe.stereo_depth", "fe.stereo_orb", "fe.stereo_match",
 )
-COUNTERS = ("splats_added", "kf_bins_refreshed", "map_graph_captures", "map_graph_replays")
+COUNTERS = ("splats_added", "kf_bins_refreshed", "map_graph_captures", "map_graph_replays",
+            "stereo_keypoints", "stereo_matches")
 
 
 def _frame_span(method):
@@ -956,44 +961,61 @@ class System:
         pair (``[H, W, 3]`` or gray ``[H, W]`` numpy arrays in [0, 1]).
 
         Dense depth from OpenCV's SGBM on the 8-bit gray pair feeds the
-        splat map and tracking; with the ORB frontend, ORB matches along the
-        rectified rows (``Frame::ComputeStereoMatches``) give per-keypoint
+        splat map and tracking; with the ORB frontend, ORB-SLAM2's
+        ``Frame::ComputeStereoMatches`` (``frontend/matcher.py``: the row-
+        band descriptor match, the SAD sub-pixel refinement on the pyramid
+        and the median filter, ``minZ`` the baseline) gives per-keypoint
         depths for new map points and right-image coordinates for the
         stereo edges of the pose optimization (``src/Optimizer.cc:300-380``),
-        both extracted from the same 8-bit gray. Then ``track_rgbd``."""
+        both extracted from the same 8-bit gray. Then ``track_rgbd``.
+
+        The stereo stage is a ``frontend`` span of the frame: ``fe.stereo_depth``
+        (gray conversion and SGBM), ``fe.stereo_orb`` (both extractions) and
+        ``fe.stereo_match``; the counters ``stereo_keypoints`` and
+        ``stereo_matches`` add the valid left keypoints and those with a
+        depth."""
         import cv2
 
-        lg8 = (np.asarray(left, np.float32) * 255).astype(np.uint8)
-        rg8 = (np.asarray(right, np.float32) * 255).astype(np.uint8)
-        if lg8.ndim == 3:
-            lg8 = cv2.cvtColor(lg8, cv2.COLOR_RGB2GRAY)
-            rg8 = cv2.cvtColor(rg8, cv2.COLOR_RGB2GRAY)
-        # Disparities up to 96 for VGA-class widths (SGBM needs width -
-        # numDisparities > blockSize / 2).
-        num_disp = max(16, min(96, ((lg8.shape[1] // 3) // 16) * 16))
-        sgbm = cv2.StereoSGBM_create(minDisparity=0, numDisparities=num_disp, blockSize=7,
-                                     P1=8 * 49, P2=32 * 49, uniquenessRatio=10)
-        disp = sgbm.compute(lg8, rg8).astype(np.float32) / 16.0
-        bf = self.cfg.camera.bf
-        depth = np.where(disp > 0.5, bf / np.maximum(disp, 0.5), 0.0)
-        rgb = left if np.asarray(left).ndim == 3 else np.repeat(
-            np.asarray(left)[..., None], 3, axis=-1)
-
         stereo_aux = None
-        if self.fe is not None and bf > 0:
-            feats_l = self.fe._extract(lg8.astype(np.float32) / 255.0)
-            feats_r = self.fe._extract(rg8.astype(np.float32) / 255.0)
-            scale_factors = torch.as_tensor(np.sqrt(level_sigma2(self.cfg.orb)),
-                                            device=self.device)
-            sm = compute_stereo_matches(feats_l, feats_r, bf, min_z=0.3,
-                                        scale_factors=scale_factors)
-            valid = trace.wait(sm.valid.cpu).numpy()
-            stereo_aux = dict(
-                feats=feats_l,
-                kp_ur=np.where(valid, trace.wait(sm.u_right.cpu).numpy(), -1.0).astype(
-                    np.float32),
-                kp_depth=trace.wait(sm.depth.cpu).numpy().astype(np.float32),
-            )
+        with trace.span("frontend"):
+            with trace.span("fe.stereo_depth"):
+                lg8 = (np.asarray(left, np.float32) * 255).astype(np.uint8)
+                rg8 = (np.asarray(right, np.float32) * 255).astype(np.uint8)
+                if lg8.ndim == 3:
+                    lg8 = cv2.cvtColor(lg8, cv2.COLOR_RGB2GRAY)
+                    rg8 = cv2.cvtColor(rg8, cv2.COLOR_RGB2GRAY)
+                # Disparities up to 96 for VGA-class widths (SGBM needs width -
+                # numDisparities > blockSize / 2).
+                num_disp = max(16, min(96, ((lg8.shape[1] // 3) // 16) * 16))
+                sgbm = cv2.StereoSGBM_create(minDisparity=0, numDisparities=num_disp,
+                                             blockSize=7, P1=8 * 49, P2=32 * 49,
+                                             uniquenessRatio=10)
+                disp = sgbm.compute(lg8, rg8).astype(np.float32) / 16.0
+                bf = self.cfg.camera.bf
+                depth = np.where(disp > 0.5, bf / np.maximum(disp, 0.5), 0.0)
+                rgb = left if np.asarray(left).ndim == 3 else np.repeat(
+                    np.asarray(left)[..., None], 3, axis=-1)
+
+            if self.fe is not None and bf > 0:
+                read = lambda t: trace.wait(t.cpu)  # noqa: E731
+                with trace.span("fe.stereo_orb"):
+                    levels_l, levels_r = [], []
+                    feats_l = self.fe._extract(lg8.astype(np.float32) / 255.0, levels_l, read)
+                    feats_r = self.fe._extract(rg8.astype(np.float32) / 255.0, levels_r, read)
+                with trace.span("fe.stereo_match"):
+                    baseline = float(np.float32(bf) / np.float32(self.cfg.camera.fx))  # minZ
+                    scale_factors = torch.as_tensor(np.sqrt(level_sigma2(self.cfg.orb)),
+                                                    device=self.device)
+                    sm = compute_stereo_matches(
+                        feats_l, feats_r, bf, min_z=baseline, scale_factors=scale_factors,
+                        levels_l=levels_l, levels_r=levels_r)
+                    # One read: u_right (-1 unmatched), depth, the two valid masks.
+                    host = read(torch.stack([sm.u_right, sm.depth, sm.valid.to(torch.float32),
+                                             feats_l.valid.to(torch.float32)])).numpy()
+                    stereo_aux = dict(feats=feats_l, kp_ur=host[0].astype(np.float32),
+                                      kp_depth=host[1].astype(np.float32))
+                    trace.count("stereo_keypoints", int(host[3].sum()))
+                    trace.count("stereo_matches", int(host[2].sum()))
         return self.track_rgbd(rgb, depth, timestamp, stereo_aux=stereo_aux)
 
     @_frame_span

@@ -1,18 +1,23 @@
 """The port's stereo and monocular inputs against the JAX package's on the CPU.
 
 - ``compute_stereo_matches`` (mirrors ``tests/test_stereo_orb.py:39-72``):
-  ``u_right``, ``depth`` and ``valid`` equal to JAX's, with planted Hamming
-  ties (right sets holding exact copies of a descriptor, so the first index
-  decides) and wrong-row rejection; depths recovered within 1e-2 m.
+  the JAX package stops at the descriptor match, the port goes on as
+  ORB-SLAM2 does (SAD sub-pixel refinement, median filter). So the port's
+  descriptor stage (``stereo_candidates``) is held to JAX's matches, with
+  planted Hamming ties (right sets holding exact copies of a descriptor,
+  so the first index decides) and wrong-row rejection, and the refined
+  output to the plain reference (``slambench.reference.stereo``) on a
+  textured pyramid; the descriptor stage's depths within 1e-2 m.
 - ``StereoSyntheticDataset``: rgb within 2e-3, poses equal (the render's
   tolerance of ``tests/test_torch_eval.py``), the right view the left pose
   shifted by the baseline.
 - ``KittiStereoDataset`` (stereo and ``mono=True``) and ``MonoTumDataset``
   read layouts written here: frames equal to the JAX loaders'.
 - ``track_stereo``'s host stage: ``track_rgbd`` replaced on one instance of
-  each System to capture its arguments, the JAX features carried across;
-  SGBM depth and rgb equal, ``kp_ur`` and ``kp_depth`` within 1e-5, the
-  same valid set.
+  each System to capture its arguments, the JAX features carried across
+  (with the port's pyramid of the same gray); SGBM depth and rgb equal,
+  the descriptor stage on those features equal to JAX's ``kp_ur``, and the
+  port's ``kp_ur`` and ``kp_depth`` equal to the reference's.
 - A 2-frame port-only stereo System (``frontend="orb"``) at 128x96.
 """
 
@@ -32,10 +37,13 @@ from gsorb_slam_tpu.frontend.orb import ORBFeatures as JFeatures
 from gsorb_slam_tpu.slam import dataset as JD
 from gsorb_slam_tpu.slam import system as JS
 from gsorb_slam_tpu_torch.core.camera import Camera
+from gsorb_slam_tpu_torch.core.config import ORBConfig
 from gsorb_slam_tpu_torch.frontend import matcher as TM
+from gsorb_slam_tpu_torch.frontend import orb as TO
 from gsorb_slam_tpu_torch.interop import orb_features_from_numpy, system_config_from_dict
 from gsorb_slam_tpu_torch.slam import dataset as D
 from gsorb_slam_tpu_torch.slam import system as S
+from slambench.reference import stereo as RS
 
 torch.set_num_threads(1)
 
@@ -68,13 +76,46 @@ def _feats(uv, desc, octave=None, n_pad=8):
 
 
 def _stereo_both(fL, fR):
+    """The port's descriptor stage against JAX's matches (``min_z`` 0.3 on
+    both sides, as JAX's System passes)."""
     ref = JM.compute_stereo_matches(fL[0], fR[0], BF, min_z=0.3, scale_factors=jnp.asarray(SF))
-    out = TM.compute_stereo_matches(fL[1], fR[1], BF, min_z=0.3,
-                                    scale_factors=torch.as_tensor(SF))
+    cand = TM.stereo_candidates(fL[1], fR[1], BF, min_z=0.3, scale_factors=torch.as_tensor(SF))
+    u_r = torch.where(cand.valid, fR[1].uv[:, 0][torch.clamp(cand.idx2, min=0)], -1.0)
+    np.testing.assert_array_equal(cand.valid.numpy(), np.asarray(ref.valid))
+    np.testing.assert_array_equal(u_r.numpy(), np.asarray(ref.u_right))
+    np.testing.assert_array_equal(np.where(cand.valid.numpy(), BF / np.maximum(
+        fL[1].uv[:, 0].numpy() - u_r.numpy(), 0.01), 0.0).astype(np.float32),
+        np.asarray(ref.depth))
+    return cand
+
+
+def _pyramid(shift: np.ndarray, h: int, w: int, seed: int):
+    """Left and right pyramids of a smooth random texture, the right level
+    shifted left by ``shift`` level-0 pixels (one value a row, so each row
+    has its own disparity)."""
+    rng = np.random.default_rng(seed)
+    base = rng.random((h // 3 + 4, w // 3 + 12)).astype(np.float32)
+    big = cv2.resize(base, (3 * base.shape[1], 3 * base.shape[0]), interpolation=cv2.INTER_CUBIC)
+    xs = np.arange(w, dtype=np.float32)
+    left = np.stack([np.interp(xs + 12, np.arange(big.shape[1]), big[y]) for y in range(h)])
+    right = np.stack([np.interp(xs + 12 + shift[y], np.arange(big.shape[1]), big[y])
+                      for y in range(h)])
+    right = right + 0.01 * rng.standard_normal(right.shape)
+    lv_l, lv_r = [], []
+    for lv in range(len(SF)):
+        hl, wl = int(round(h / SF[lv])), int(round(w / SF[lv]))
+        lv_l.append(TO.resize_linear(torch.as_tensor(left, dtype=torch.float32), hl, wl))
+        lv_r.append(TO.resize_linear(torch.as_tensor(right, dtype=torch.float32), hl, wl))
+    return lv_l, lv_r
+
+
+def _refined_matches_reference(fL, fR, lv_l, lv_r, bf, min_z):
+    got = TM.compute_stereo_matches(fL, fR, bf, min_z=min_z, scale_factors=torch.as_tensor(SF),
+                                    levels_l=lv_l, levels_r=lv_r)
+    ref = RS.compute_stereo_matches(fL, fR, lv_l, lv_r, bf, min_z, torch.as_tensor(SF))
     for f in ("u_right", "depth", "valid"):
-        np.testing.assert_array_equal(getattr(out, f).numpy(), np.asarray(getattr(ref, f)),
-                                      err_msg=f)
-    return out
+        np.testing.assert_array_equal(getattr(got, f).numpy(), ref[f].numpy(), err_msg=f)
+    return got
 
 
 def test_compute_stereo_matches_matches_jax():
@@ -97,13 +138,28 @@ def test_compute_stereo_matches_matches_jax():
                            np.stack([uR[20:30] + 1.0, vL[20:30]], -1)]).astype(np.float32)
     fR = _feats(uv_r, np.concatenate([desc, desc[:20], flipped]),
                 np.concatenate([octave, octave[:20], octave[20:30]]))
-    out = _stereo_both(fL, fR)
-    valid = out.valid.numpy()[:n]
+    cand = _stereo_both(fL, fR)
+    valid = cand.valid.numpy()[:n]
     assert valid.mean() > 0.9
-    assert np.abs(out.depth.numpy()[:n][valid] - z[valid]).max() < 1e-2
+    u_r = fR[1].uv[:, 0].numpy()[cand.idx2.numpy()[:n]]
+    assert np.abs(BF / (uL - u_r)[valid] - z[valid]).max() < 1e-2
     # The copies lie further left: a larger disparity, only chosen if first.
-    np.testing.assert_array_equal(out.u_right.numpy()[:20][valid[:20]], uR[:20][valid[:20]])
-    assert not out.valid.numpy()[n:].any()
+    np.testing.assert_array_equal(u_r[:20][valid[:20]], uR[:20][valid[:20]])
+    assert not cand.valid.numpy()[n:].any()
+
+    # The refined output against the reference: the same keypoints moved 30 px
+    # into a pyramid whose right view shows each keypoint's row at its
+    # disparity (the copies' rows too), so the SAD search finds the true match.
+    off = np.float32(30.0)
+    shift = np.zeros(180, np.float32)
+    rows = (vL + off).astype(int)
+    for dv in range(-3, 4):
+        shift[rows + dv] = BF / z
+    lv_l, lv_r = _pyramid(shift, 180, 220, seed=3)
+    move = lambda f: f._replace(uv=f.uv + torch.tensor([off, off]))
+    got = _refined_matches_reference(move(fL[1]), move(fR[1]), lv_l, lv_r, BF, 0.3)
+    ok = got.valid.numpy()[:n]
+    assert ok.mean() > 0.5
 
 
 def test_stereo_matches_reject_wrong_row():
@@ -114,7 +170,10 @@ def test_stereo_matches_reject_wrong_row():
     desc = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
     fL = _feats(np.stack([uL, vL], -1), desc)
     fR = _feats(np.stack([uL - 5.0, vL + 40.0], -1), desc)
-    out = _stereo_both(fL, fR)
+    cand = _stereo_both(fL, fR)
+    assert cand.valid.numpy().sum() == 0
+    lv_l, lv_r = _pyramid(np.full(120, 5.0, np.float32), 120, 180, seed=4)
+    out = _refined_matches_reference(fL[1], fR[1], lv_l, lv_r, BF, 0.3)
     assert out.valid.numpy().sum() == 0
     assert (out.u_right.numpy() == -1.0).all() and (out.depth.numpy() == 0.0).all()
 
@@ -200,15 +259,19 @@ def _capture_track_rgbd(system, out):
 
 def test_track_stereo_host_stage_matches_jax(stereo_pairs):
     """SGBM, the quantized gray and the row-wise ORB matches: both Systems'
-    ``track_rgbd`` receive the same inputs (the port takes JAX's features)."""
+    ``track_rgbd`` receive the same rgb and depth (the port takes JAX's
+    features, with its own pyramid of the same gray); the port's
+    descriptor stage on them gives JAX's matches, and its refined
+    ``kp_ur`` / ``kp_depth`` are the reference's."""
     ref, _ = stereo_pairs
     raster_j = dataclasses.replace(JS.System.default_raster_config(W), backend="pallas",
                                    **RASTER)
     jsys = JS.System(jload_config(CONFIG), frontend="orb", raster=raster_j)
     tsys = S.System(system_config_from_dict(CONFIG), frontend="orb", device="cpu",
                     raster=dataclasses.replace(S.System.default_raster_config(W), **RASTER))
-    feats = []
+    feats, used = [], []
     extract_j = jsys.fe._extract
+    orb_cfg = ORBConfig(n_features=400, n_levels=3)
 
     def record(gray):
         f = extract_j(gray)
@@ -216,8 +279,13 @@ def test_track_stereo_host_stage_matches_jax(stereo_pairs):
                                              device="cpu"))
         return f
 
+    def carried(gray, levels=None, read=torch.Tensor.cpu):
+        TO.extract_orb(torch.as_tensor(gray, dtype=torch.float32), orb_cfg, levels=levels)
+        used.append((feats.pop(0), levels))
+        return used[-1][0]
+
     jsys.fe._extract = record
-    tsys.fe._extract = lambda gray: feats.pop(0)
+    tsys.fe._extract = carried
     got_j, got_t = [], []
     _capture_track_rgbd(jsys, got_j)
     _capture_track_rgbd(tsys, got_t)
@@ -228,11 +296,28 @@ def test_track_stereo_host_stage_matches_jax(stereo_pairs):
     np.testing.assert_array_equal(a["rgb"], b["rgb"])
     np.testing.assert_array_equal(a["depth"], b["depth"])
     assert 0.2 < float((b["depth"] > 0).mean()) < 1.0
-    valid_j, valid_t = b["aux"]["kp_ur"] >= 0, a["aux"]["kp_ur"] >= 0
-    np.testing.assert_array_equal(valid_t, valid_j)
+    (fl, lv_l), (fr_, lv_r) = used
+    sf = torch.as_tensor(np.sqrt(TO.level_sigma2(orb_cfg)))
+    bf = CONFIG["Camera"]["bf"]
+    # The descriptor stage, as JAX's System runs it (min_z 0.3).
+    cand = TM.stereo_candidates(fl, fr_, bf, 0.3, sf)
+    valid_j = b["aux"]["kp_ur"] >= 0
+    # A best distance of exactly thOrbDist (75): JAX keeps it (<=), Frame.cc
+    # and the port drop it (<); nothing else differs on these features.
+    at_th = cand.dist.numpy() == (TM.TH_HIGH + TM.TH_LOW) // 2
+    np.testing.assert_array_equal(cand.valid.numpy(), valid_j & ~at_th)
     assert valid_j.sum() > 20
-    np.testing.assert_allclose(a["aux"]["kp_ur"], b["aux"]["kp_ur"], rtol=0, atol=1e-5)
-    np.testing.assert_allclose(a["aux"]["kp_depth"], b["aux"]["kp_depth"], rtol=0, atol=1e-5)
+    keep = cand.valid.numpy()
+    np.testing.assert_array_equal(fr_.uv[:, 0].numpy()[cand.idx2.numpy()[keep]],
+                                  b["aux"]["kp_ur"][keep])
+    # The refined matches, with minZ the baseline bf / fx.
+    want = RS.compute_stereo_matches(fl, fr_, lv_l, lv_r, bf,
+                                     float(np.float32(bf) / np.float32(CAM_KW["fx"])), sf)
+    valid_t = a["aux"]["kp_ur"] >= 0
+    np.testing.assert_array_equal(valid_t, want["valid"].numpy())
+    assert valid_t.sum() > 10
+    np.testing.assert_array_equal(a["aux"]["kp_ur"], want["u_right"].numpy())
+    np.testing.assert_array_equal(a["aux"]["kp_depth"], want["depth"].numpy())
     assert a["aux"]["kp_ur"].dtype == a["aux"]["kp_depth"].dtype == np.float32
     np.testing.assert_array_equal(a["aux"]["feats"].uv.numpy(), np.asarray(b["aux"]["feats"].uv))
 
