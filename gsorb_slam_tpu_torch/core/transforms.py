@@ -82,7 +82,9 @@ def pose_to_matrix(quat: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = trans.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # Made on the device (no host-to-device copy, which a CUDA graph
+    # cannot capture).
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3]
     bottom = bottom.expand(batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 

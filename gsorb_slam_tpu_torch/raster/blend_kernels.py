@@ -782,11 +782,13 @@ def fused_track_launch(
     depth_weight: float,
     use_sur_depth: bool,
     tile_ids: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch of K1 (fast stop) or K7 (``cfg.exact_stop``) on CUDA
     tensors -> ``(loss [T, 2], d_packed [T, 16, cap])``: the kernel's
     per-tile rows of ``im_w * image_l1`` and ``depth_w * depth_l1`` and its
-    gradient block. :func:`tracking_loss_grad` sums the rows."""
+    gradient block, written into ``out`` if given (the kernel writes every
+    element). :func:`tracking_loss_grad` sums the rows."""
     tile_ids, K = _tracking_args(packed, cfg, tile_ids)
     _check_tile_shape(cfg)
     ty, tx = tile_grid_shape(cam, cfg)
@@ -800,19 +802,24 @@ def fused_track_launch(
     _build.check_tensor(counts, "counts", torch.int32, (n_tiles,), dev)
     _build.check_tensor(tile_ids, "tile_ids", torch.int32, (n_tiles,), dev)
     _build.check_tensor(gt_tiles, "gt_tiles", torch.float32, (n_tiles, 4, px), dev)
+    if out is not None:
+        _build.check_tensor(out, "out", torch.float32, (n_tiles, N_ATTR, cap), dev)
     name = "fused_track_exact" if cfg.exact_stop else "fused_track_fast"
     return _launch_track(name, name, packed, counts, tile_ids, gt_tiles, K, tx, cfg, im_weight,
-                         depth_weight, use_sur_depth)
+                         depth_weight, use_sur_depth, out)
 
 
 def _launch_track(name, counter, packed, counts, tile_ids, gt_tiles, K, tx, cfg, im_weight,
-                  depth_weight, use_sur_depth) -> tuple[torch.Tensor, torch.Tensor]:
+                  depth_weight, use_sur_depth, out=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the ``gsorb_<name>`` entry point of ``csrc/fused_track.cu`` on
     checked operands (``counts`` None for K9, which reads none), counted
-    under ``counter`` -> ``(loss [T, 2], grads [T, 16, cap])``."""
+    under ``counter`` -> ``(loss [T, 2], grads [T, 16, cap])``, ``grads``
+    being ``out`` if given."""
     n_tiles, _, cap = packed.shape
     dev = packed.device
-    grads = torch.empty((n_tiles, N_ATTR, cap), dtype=torch.float32, device=dev)
+    grads = out
+    if grads is None:
+        grads = torch.empty((n_tiles, N_ATTR, cap), dtype=torch.float32, device=dev)
     loss = torch.empty((n_tiles, 2), dtype=torch.float32, device=dev)
     lib = _build.library()
     _build.count_launch(counter)
@@ -836,21 +843,24 @@ def tracking_loss_grad(
     depth_weight: float,
     use_sur_depth: bool,
     tile_ids: torch.Tensor | None = None,
+    out: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1 (fast stop) or K7 (``cfg.exact_stop``): one fused tracking
     iteration -> ``(im_w * image_l1, depth_w * depth_l1, d_packed)``.
 
     ``tile_ids`` maps each row of ``packed``/``gt_tiles`` to its global tile
-    id (the pixel origin); identity by default. CUDA tensors launch the
-    kernel (:func:`fused_track_launch`), CPU tensors take
+    id (the pixel origin); identity by default. ``out`` (``[T, 16, cap]``
+    float32), if given, receives ``d_packed`` and is returned as it. CUDA
+    tensors launch the kernel (:func:`fused_track_launch`), CPU tensors take
     :func:`tracking_loss_grad_plain`."""
     if not packed.is_cuda:
-        return tracking_loss_grad_plain(
+        img, dep, g = tracking_loss_grad_plain(
             packed, counts, gt_tiles, cam, cfg, im_weight, depth_weight,
             use_sur_depth, tile_ids,
         )
+        return img, dep, g if out is None else out.copy_(g)
     loss, grads = fused_track_launch(packed, counts, gt_tiles, cam, cfg, im_weight,
-                                     depth_weight, use_sur_depth, tile_ids)
+                                     depth_weight, use_sur_depth, tile_ids, out)
     sums = loss.sum(0)
     return sums[0], sums[1], grads
 

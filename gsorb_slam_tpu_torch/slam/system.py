@@ -8,7 +8,9 @@ Equivalent of ``System`` / ``Tracking::TrackWithGaussian``
    frontend (``slam/geometric.py``) refines it by ORB matching against the
    local map, and its inlier matches enter the tracking loss as the
    reprojection term,
-2. tracking-by-rendering (``slam/tracking.py``: K2f, K1 / K7 / K8, K2b),
+2. tracking-by-rendering (``slam/tracking.py``: K2f, K1 / K7 / K8, K2b;
+   with K1 / K7 on the card each iteration replayed as CUDA graphs,
+   ``slam/track_graph.py``),
 3. the keyframe decision by novel-view overlap, frame gap or (ORB) weak
    matching; an ORB keyframe runs the frontend's local mapping and loop
    closing (``slam/loop.py``: BoW detection, Sim3 verification, essential-
@@ -123,7 +125,7 @@ SPANS = (
     "fe.stereo_depth", "fe.stereo_orb", "fe.stereo_match",
 )
 COUNTERS = ("splats_added", "kf_bins_refreshed", "map_graph_captures", "map_graph_replays",
-            "stereo_keypoints", "stereo_matches")
+            "stereo_keypoints", "stereo_matches", "track_graph_captures", "track_graph_replays")
 
 
 def _frame_span(method):
