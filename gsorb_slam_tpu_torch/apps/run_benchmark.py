@@ -53,7 +53,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="generate the sequence without TUM1's lens distortion")
     ap.add_argument("--no-noise", action="store_true")
     ap.add_argument("--frontend", default="orb", choices=["orb", "render"],
-                    help="'orb' (the JAX default) raises until the ORB slice; pass 'render'")
+                    help="'orb' (the JAX default) seeds each frame with the geometric "
+                         "frontend's pose and matches; 'render' tracks by rendering from "
+                         "the motion model")
     ap.add_argument("--max-gaussians", type=int, default=1 << 20)
     ap.add_argument("--out", default="experiments/tum_like")
     ap.add_argument("--eval-stride", type=int, default=1)

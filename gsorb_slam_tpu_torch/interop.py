@@ -67,14 +67,23 @@ def gaussian_map_to_numpy(gm: GaussianMap) -> dict[str, Any]:
     return out
 
 
+# The JAX RasterConfig's fields that only lay out TPU kernels (bf16 slabs,
+# unrolls, per-step tile and chunk batches, the Pallas preprocess, the
+# backend choice); the port has none of them.
+TPU_LAYOUT_FIELDS = ("backend", "chunk_unroll", "blend_bf16", "elem_bf16", "flat_group",
+                     "fused_tiles_per_step", "fused_chunk_batch", "sorted_pack_grad",
+                     "preprocess_pallas", "debug_loss")
+
+
 def raster_config_from_dict(d: Mapping[str, Any]) -> RasterConfig:
     """The port's ``RasterConfig`` from the JAX one's fields
-    (``dataclasses.asdict`` of it). Unknown keys raise."""
+    (``dataclasses.asdict`` of it), without :data:`TPU_LAYOUT_FIELDS`.
+    Other unknown keys raise."""
     names = {f.name for f in dataclasses.fields(RasterConfig)}
-    unknown = set(d) - names
+    unknown = set(d) - names - set(TPU_LAYOUT_FIELDS)
     if unknown:
         raise ValueError(f"unknown RasterConfig fields: {sorted(unknown)}")
-    return RasterConfig(**dict(d))
+    return RasterConfig(**{k: v for k, v in d.items() if k in names})
 
 
 def window_frames_from_numpy(

@@ -1,11 +1,9 @@
 """The mapping iteration replayed as CUDA graphs (the port's own; the JAX
 package jits ``map_window`` instead).
 
-Issued from Python, one mapping iteration is about 1,180 small launches,
-and the host issues them slower than the card runs them. On CUDA tensors
-:func:`~gsorb_slam_tpu_torch.slam.mapping.map_window` therefore replays two
-graphs per iteration, captured from the eager code, so the card runs the
-same kernels in the same order:
+On CUDA tensors :func:`~gsorb_slam_tpu_torch.slam.mapping.map_window` runs
+each iteration (about 1,180 launches from Python) as two bodies of a
+:class:`~gsorb_slam_tpu_torch.utils.cuda_graphs.Replay`:
 
 - ``G_grad``: the loss on this iteration's window frame and its gradient
   w.r.t. the five splat parameter groups (preprocess, pack gather, K4,
@@ -14,44 +12,34 @@ same kernels in the same order:
 - ``G_step``: the masked Adam step over the five groups, written in place
   into the map's fixed buffers.
 
-Two graphs and not one, because ``map_step`` keeps calling
-``map_loss_and_grads`` once per iteration as a Python call that returns
-``(loss, grads)`` (the call replays ``G_grad``), and then the step.
+Two bodies, because ``map_step`` calls ``map_loss_and_grads`` (which runs
+``G_grad``) once per iteration for its ``(loss, grads)``, then the step.
 
 A :class:`MapGraph` holds a window's inputs and state in fixed device
-buffers: the map's prefix rows, ``active``, the scene radius and Adam's
-moments and step, copied in once per call; the window's colours, depths
-and poses; the frames' flat-chunk layouts stacked along a frame axis
-(:class:`StackedLayouts`); the iterations' frame draws and an iteration
-counter that ``G_step`` advances. So the frame of each iteration is picked
-on the device (:func:`select_frame`), and no host value enters an
-iteration; each iteration's loss lands in its own slot.
-
-The first iteration of a call that finds no graph for its shapes runs
-eagerly on those buffers (it warms up every operation the capture then
-records), and the graphs are captured after it. Graphs are kept under a
-key of what the call observes: the prefix rows, the window, image and
-layout shapes (the chunk budget among them), the draw capacity, the
-camera and configurations, ``init_mode``, and the module-level functions
-the captured code looks up (so a patched function is what gets
-captured); at most the newest per device and ``init_mode``.
+buffers: the map's prefix rows and Adam state, the window's colours, depths
+and poses, its frames' flat-chunk layouts stacked along a frame axis
+(:class:`StackedLayouts`), the iterations' frame draws and an iteration
+counter that ``G_step`` advances. So each iteration's frame is picked on
+the device (:func:`select_frame`) and its loss lands in its own slot. It is
+kept (``cuda_graphs.kept``, slot ``("map", device, init_mode)``) under a key
+of the prefix rows, the window, image and layout shapes (the chunk budget
+among them), the draw capacity, the camera and configurations,
+``init_mode`` and the module-level functions the bodies look up, so a
+patched function is what gets captured.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable
 
 import torch
 
-from gsorb_slam_tpu_torch import _build
 from gsorb_slam_tpu_torch.raster.binning import ChunkBins
 from gsorb_slam_tpu_torch.raster.blend_kernels import PackAux
 from gsorb_slam_tpu_torch.splat.gaussians import PARAM_NAMES, GaussianMap
-from gsorb_slam_tpu_torch.utils import trace
-
-# The graphs kept, by (device, init_mode).
-_GRAPHS: dict[tuple[torch.device, bool], "MapGraph"] = {}
+from gsorb_slam_tpu_torch.utils import cuda_graphs
 
 
 @dataclasses.dataclass
@@ -121,17 +109,16 @@ def _pow2_at_least(n: int, floor: int) -> int:
 
 class MapGraph:
     """A mapping window's inputs and state in fixed device buffers, and the
-    two graphs of its iteration.
+    replay of its iteration.
 
     ``grads_fn(graph)`` computes the iteration's ``(loss, grads)`` from the
     buffers; ``step_fn(graph, grads)`` steps the map and writes it back
-    through :meth:`write_state`. Both run eagerly once, then are captured.
-    ``graph[k]`` is the graph itself: it stands in for every frame's layout
-    in ``map_step``, which picks the frame on the device."""
+    through :meth:`write_state`. ``graph[k]`` is the graph itself: it
+    stands in for every frame's layout in ``map_step``, which picks the
+    frame on the device."""
 
-    def __init__(self, key: tuple, gm: GaussianMap, frames, layouts: list, L: int,
-                 n_draws: int, grads_fn: Callable, step_fn: Callable):
-        self.key = key
+    def __init__(self, gm: GaussianMap, frames, layouts: list, L: int, n_draws: int,
+                 grads_fn: Callable, step_fn: Callable):
         self.gm = dataclasses.replace(
             gm, **{n: torch.empty_like(getattr(gm, n)) for n in PARAM_NAMES},
             active=torch.empty_like(gm.active),
@@ -147,10 +134,18 @@ class MapGraph:
         self.draws = torch.zeros(n_draws, dtype=torch.long, device=dev)
         self.losses = torch.zeros(n_draws, dtype=torch.float32, device=dev)
         self.it = torch.zeros((), dtype=torch.long, device=dev)
-        self._grads_fn, self._step_fn = grads_fn, step_fn
-        self._graphs: tuple[torch.cuda.CUDAGraph, torch.cuda.CUDAGraph] | None = None
-        self._out: tuple[torch.Tensor, dict[str, torch.Tensor]] | None = None
-        self._launches: dict[str, int] = {}  # kernel launches per replayed iteration
+        me, out = weakref.proxy(self), None  # a proxy: no cycle keeps a dropped graph
+
+        def g_grads():
+            nonlocal out
+            out = grads_fn(me)
+            return out
+
+        def g_step():
+            step_fn(me, out[1])
+            return me.gm
+
+        self._replay = cuda_graphs.Replay((g_grads, g_step), "map_graph")
 
     def __getitem__(self, k: int) -> "MapGraph":
         return self
@@ -192,39 +187,13 @@ class MapGraph:
         self.it.add_(1)
 
     def grads(self) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """This iteration's ``(loss, grads)``: ``G_grad`` replayed, or the
-        eager code before the capture."""
-        if self._graphs is None:
-            return self._grads_fn(self)
-        self._graphs[0].replay()
-        for name, n in self._launches.items():
-            _build.launches[name] += n
-        trace.count("map_graph_replays", 1)
-        return self._out
+        """This iteration's ``(loss, grads)`` (``G_grad``)."""
+        return self._replay.run(0)
 
-    def step(self, grads: dict[str, torch.Tensor]) -> GaussianMap:
-        """The Adam step: ``G_step`` replayed, or the eager code followed by
-        the capture of both graphs. Returns the map's buffers."""
-        if self._graphs is None:
-            self._step_fn(self, grads)
-            self._capture()
-        else:
-            self._graphs[1].replay()
-        return self.gm
-
-    def _capture(self) -> None:
-        before = dict(_build.launches)
-        g_grads, g_step = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g_grads):
-            self._out = self._grads_fn(self)
-        with torch.cuda.graph(g_step, pool=g_grads.pool()):
-            self._step_fn(self, self._out[1])
-        # A capture launches nothing: what it counted is what each replay
-        # of the pair launches.
-        self._launches = {k: v - before[k] for k, v in _build.launches.items() if v != before[k]}
-        _build.launches.update(before)
-        self._graphs = (g_grads, g_step)
-        trace.count("map_graph_captures", 1)
+    def step(self) -> GaussianMap:
+        """The Adam step on the gradients (``G_step``); returns the map's
+        buffers."""
+        return self._replay.run(1)
 
     def result(self, gm: GaussianMap, n_iters: int) -> tuple[GaussianMap, torch.Tensor]:
         """``(map, per-iteration losses)`` of the call, as copies: ``gm`` (the
@@ -241,20 +210,13 @@ class MapGraph:
 def window_graph(gm: GaussianMap, frames, layouts: list, frame_ids: list[int],
                  init_mode: bool, observed: tuple, grads_fn: Callable,
                  step_fn: Callable) -> MapGraph:
-    """The graph for this window's shapes, loaded with its map, frames,
-    layouts and draws; a new key drops the graph kept for its
-    ``(device, init_mode)`` and starts a new one. ``observed`` is the rest
-    of the key (configurations and looked-up functions)."""
+    """The graph for this window's shapes. ``observed`` is the rest of the
+    key (configurations and looked-up functions)."""
     L = _pow2_at_least(max(lay.pack_aux.table.shape[1] for lay in layouts), 16)
     n_draws = _pow2_at_least(len(frame_ids), 64)
     lay = layouts[0]
     key = (gm.capacity, tuple(frames.colors.shape), tuple(lay.cbins.indices.shape),
            tuple(lay.cbins.tile_start.shape), L, n_draws, init_mode) + observed
-    slot = (gm.device, init_mode)
-    graph = _GRAPHS.get(slot)
-    if graph is None or graph.key != key:
-        _GRAPHS.pop(slot, None)
-        graph = _GRAPHS[slot] = MapGraph(key, gm, frames, layouts, L, n_draws, grads_fn,
-                                         step_fn)
-    graph.load(gm, frames, layouts, frame_ids)
-    return graph
+    return cuda_graphs.kept(
+        ("map", gm.device, init_mode), key,
+        lambda: MapGraph(gm, frames, layouts, L, n_draws, grads_fn, step_fn))

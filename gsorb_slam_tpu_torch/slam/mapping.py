@@ -16,14 +16,15 @@ CUDA tensors, their plain versions on CPU tensors. Each window frame's chunk
 layout and pack residuals are built once per :func:`map_window` call and
 reused by every iteration on that frame. The iteration loop runs on the host
 (one Python iteration per Adam step); the frame of each step is drawn from
-a ``torch.Generator``. On CUDA tensors each iteration replays two captured
-CUDA graphs, the loss and gradients and the Adam step
-(``slam/map_graph.py``); CPU tensors run the eager code.
+a ``torch.Generator``. On CUDA tensors each iteration replays two CUDA
+graphs, the loss and gradients and the Adam step (``slam/map_graph.py``,
+on the port's one replay mechanism, ``utils/cuda_graphs.py``, which the
+tracking loop shares); CPU tensors run the eager code.
 
 Spans (``utils/trace.py``): ``map.layouts`` for the layouts of a
 :func:`map_window` call (and loading its graph), ``map.iter`` for each of
 its iterations; the layouts' host reads are waits of the open layer.
-Counters: ``map_graph_captures`` (graph pairs captured) and
+Counters: ``map_graph_captures`` (captures of the two graphs) and
 ``map_graph_replays`` (iterations replayed).
 """
 
@@ -299,15 +300,15 @@ def map_step(
     ``layouts``, its buffers, stepped in place."""
     loss, grads = map_loss_and_grads(gm, frames, k, layouts[k], cam, mcfg, rcfg, init_mode)
     if isinstance(layouts, MapGraph):
-        return layouts.step(grads), loss
+        return layouts.step(), loss
     return adam_step(gm, grads, map_learning_rates(mcfg)), loss
 
 
 def _window_graph(gm, frames, layouts, frame_ids, cam, mcfg, rcfg, init_mode) -> MapGraph:
-    """The window's :class:`MapGraph`. Its bodies look up ``adam_step`` and
-    the loss's functions by their module-level names when they run, so a
-    patched function is what gets captured; those functions are part of
-    the key."""
+    """The window's :class:`MapGraph`, loaded with its map, frames, layouts
+    and draws. Its bodies look up ``adam_step`` and the loss's functions by
+    their module-level names when they run, so a patched function is what
+    gets captured; those functions are part of the key."""
 
     def grads_fn(g: MapGraph):
         pose, color, depth, cbins, aux = g.draw()
@@ -321,7 +322,9 @@ def _window_graph(gm, frames, layouts, frame_ids, cam, mcfg, rcfg, init_mode) ->
 
     observed = (cam, mcfg, rcfg, preprocess, render_flat, mapping_loss, l1_mapping, ssim,
                 adam_step)
-    return window_graph(gm, frames, layouts, frame_ids, init_mode, observed, grads_fn, step_fn)
+    graph = window_graph(gm, frames, layouts, frame_ids, init_mode, observed, grads_fn, step_fn)
+    graph.load(gm, frames, layouts, frame_ids)
+    return graph
 
 
 def map_window(

@@ -172,19 +172,16 @@ class System:
 
     @staticmethod
     def default_raster_config(width: int = 320) -> RasterConfig:
-        """The production raster configuration, the JAX package's field for
-        field: tile 16, render / mapping capacity 2048, tracking capacity
-        512, chunk 256, dilate 2 px up to 400 px of width and 4 px above (the
-        same pose drift between rebins is twice the pixels at VGA), fast
-        stop. The bf16 and per-step layout fields only shape the TPU
-        kernels; the port computes in float32."""
+        """The production raster configuration, the JAX package's on every
+        field the port has: tile 16, render / mapping capacity 2048,
+        tracking capacity 512, chunk 256, dilate 2 px up to 400 px of width
+        and 4 px above (the same pose drift between rebins is twice the
+        pixels at VGA), fast stop; the other fields at their defaults."""
         return RasterConfig(
             tile=16, tile_capacity=2048, track_tile_capacity=512,
-            max_dup=16, chunk=256, chunk_unroll=2, fused_tiles_per_step=4,
+            max_dup=16, chunk=256,
             dilate_px=2.0 if width <= 400 else 4.0,
             exact_stop=False,
-            blend_bf16=True,
-            elem_bf16=True,
         )
 
     def __init__(

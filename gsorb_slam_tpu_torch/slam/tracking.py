@@ -16,12 +16,14 @@ projection K2f, the fused tracking kernel (blend + loss + cotangents +
 backward) and the projection adjoint K2b. The fused kernel is K1 (fast
 stop), K7 (``exact_stop=True``) or, with ``paired=True``, K8 over 16x8 rect
 tiles in pair-major order (``raster/paired.py``; the pairing is rebuilt at
-every binning episode, as in the JAX package). With K1 or K7 the host
-replays the rest of the iteration (the pose chain, its autograd, the
-feature term and the pose Adam step) as CUDA graphs
-(``slam/track_graph.py``); paired tracking and the tile-sharded
-``parallel.tracking`` run it eagerly. On CPU tensors the same loop runs
-their plain versions, eagerly. Tile bins are built from the initial pose and rebuilt
+every binning episode, as in the JAX package). With K1 or K7 on CUDA
+tensors (:func:`graph_path`) the rest of the iteration (the pose chain, its
+autograd, the feature term and the pose Adam step) replays as three CUDA
+graphs around the eager fused kernel (``slam/track_graph.py``, on the
+port's one replay mechanism, ``utils/cuda_graphs.py``, which the mapping
+loop shares); paired tracking and the tile-sharded ``parallel.tracking``
+run the loop eagerly. On CPU tensors the same loop runs their plain
+versions, eagerly. Tile bins are built from the initial pose and rebuilt
 at the ``rebin_iters`` iterations (``dilate_px`` covers the drift in
 between). With ``early_stop_delta <= 0`` the loop never waits for the
 device; otherwise each iteration reads the loss on the host to decide the
@@ -29,8 +31,8 @@ break.
 
 Spans (``utils/trace.py``): ``track.bins`` for each binning episode,
 ``track.iter`` for each iteration. Counters: ``track_graph_captures``
-(graph triples captured) and ``track_graph_replays`` (iterations whose
-gradient graphs were replayed).
+(captures of the three graphs) and ``track_graph_replays`` (iterations
+replayed).
 """
 
 from __future__ import annotations
@@ -400,7 +402,7 @@ def pose_loop(
                     if graph is None:
                         st = pose_step(st, loss, gq, gt_, tcfg)
                     else:
-                        graph.step(loss, gq, gt_)
+                        graph.step()
                     converged = (
                         tcfg.early_stop_delta > 0.0 and trace.wait(bool, st.stop)
                     )

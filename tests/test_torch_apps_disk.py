@@ -48,8 +48,9 @@ CONFIG = {
     "Evalution": {"enable": True, "savePly": True, "saveRootPath": "experiments"},
 }
 # tests/test_torch_system_parity.py's raster view.
-RASTER = dict(blend_bf16=False, elem_bf16=False, chunk=64, tile_capacity=256,
-              track_tile_capacity=128)
+RASTER = dict(chunk=64, tile_capacity=256, track_tile_capacity=128)
+# The JAX System's side: its default raster config blends in bf16.
+JRASTER = dict(RASTER, blend_bf16=False, elem_bf16=False)
 SEED = 0
 
 
@@ -61,7 +62,7 @@ def _with_init_iters(cfg):
 def small_systems(monkeypatch):
     """Both packages' Systems at the parity test's raster view and 10
     warm-up iterations (no config key holds them)."""
-    jraster = dataclasses.replace(JS.System.default_raster_config(64), **RASTER)
+    jraster = dataclasses.replace(JS.System.default_raster_config(64), **JRASTER)
     traster = dataclasses.replace(S.System.default_raster_config(64), **RASTER)
     monkeypatch.setattr(JS.System, "default_raster_config", staticmethod(lambda w=320: jraster))
     monkeypatch.setattr(S.System, "default_raster_config", staticmethod(lambda w=320: traster))

@@ -28,8 +28,7 @@ CONFIG = {
     "Tracking": {"numIters": 3},
     "Evalution": {"enable": False, "savePly": False, "saveRootPath": "experiments"},
 }
-RASTER = dict(blend_bf16=False, elem_bf16=False, chunk=64, tile_capacity=256,
-              track_tile_capacity=128)
+RASTER = dict(chunk=64, tile_capacity=256, track_tile_capacity=128)
 
 
 @pytest.mark.parametrize("app", ["run_mono", "run_stereo"])

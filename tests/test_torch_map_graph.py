@@ -20,9 +20,9 @@ from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.core.config import MappingConfig
 from gsorb_slam_tpu_torch.core.transforms import pose_to_matrix
 from gsorb_slam_tpu_torch.raster import RasterConfig, bin_gaussians, preprocess, render
-from gsorb_slam_tpu_torch.slam import map_graph as MG
 from gsorb_slam_tpu_torch.slam import mapping as M
 from gsorb_slam_tpu_torch.splat.gaussians import PARAM_NAMES, empty_map
+from gsorb_slam_tpu_torch.utils import cuda_graphs as CG
 from gsorb_slam_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
@@ -39,9 +39,9 @@ COUNTERS = ("map_graph_captures", "map_graph_replays")
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    MG._GRAPHS.clear()
+    CG._GRAPHS.clear()
     yield torch.device("cuda")
-    MG._GRAPHS.clear()
+    CG._GRAPHS.clear()
 
 
 def _window(dev, n=3000, capacity=4096):
@@ -127,7 +127,7 @@ def test_map_window_graph_matches_eager_loop(dev):
             assert int(got_gm.adam_t) == len(DRAWS)
             assert tracer.totals["map_graph_captures"] == captures
             assert tracer.totals["map_graph_replays"] == replays
-    assert len(MG._GRAPHS) == 2  # the newest per init_mode
+    assert sorted((o, f) for o, _, f in CG._GRAPHS) == [("map", False), ("map", True)]
 
 
 def test_map_window_graph_keeps_the_call_contract(dev, monkeypatch):

@@ -1,6 +1,7 @@
 """The tracking loop's eager paths against the loop as it ran before its
 iterations could replay as CUDA graphs, bit for bit, and the pieces those
-graphs are made of (``slam/track_graph.py``).
+graphs are made of (``slam/track_graph.py``), and the graph registry that
+tracking and mapping share (``utils/cuda_graphs.py``).
 
 - ``track_frame`` on CPU tensors, and ``pose_loop`` on tensor operands (as
   the tile-sharded ``parallel_track_frame`` hands it), against
@@ -8,7 +9,8 @@ graphs are made of (``slam/track_graph.py``).
   the loop with its update written inline; neither makes a graph;
 - ``pose_step`` (the loop's update, ``G_step``'s body) and its in-place
   form on fixed buffers (``StepState.copy_``) against the inline update;
-- ``tracking_loss_grad(out=)`` and the graphs' keyed registry.
+- ``tracking_loss_grad(out=)`` and the keyed registry, through
+  ``frame_graph`` and ``map_graph.window_graph``.
 
 CPU only; imports neither jax nor the JAX package.
 """
@@ -26,6 +28,8 @@ from gsorb_slam_tpu_torch.raster import RasterConfig, bin_gaussians, preprocess,
 from gsorb_slam_tpu_torch.raster.blend_kernels import tile_gt_images, tracking_loss_grad
 from gsorb_slam_tpu_torch.raster.instances import pack_raw_instances, rt_from_matrix
 from gsorb_slam_tpu_torch.raster.preprocess_kernel import preprocess_instances_kernel
+from gsorb_slam_tpu_torch.slam import map_graph as MG
+from gsorb_slam_tpu_torch.slam import mapping as M
 from gsorb_slam_tpu_torch.slam import track_graph as TG
 from gsorb_slam_tpu_torch.slam import tracking as T
 from gsorb_slam_tpu_torch.splat.gaussians import (
@@ -34,6 +38,7 @@ from gsorb_slam_tpu_torch.splat.gaussians import (
     init_pose_state,
     pose_adam_step,
 )
+from gsorb_slam_tpu_torch.utils import cuda_graphs as CG
 
 torch.set_num_threads(1)
 
@@ -45,9 +50,9 @@ ITERS, REBIN = 12, (4, 8)
 
 @pytest.fixture(autouse=True)
 def no_graphs():
-    TG._GRAPHS.clear()
+    CG._GRAPHS.clear()
     yield
-    TG._GRAPHS.clear()
+    CG._GRAPHS.clear()
 
 
 def _scene(n=400, capacity=512):
@@ -210,7 +215,7 @@ def test_track_frame_on_cpu_is_the_eager_loop(use_features, early_stop, monkeypa
     _assert_same(got, want)
     n = int(got.n_iters)
     assert (1 < n < ITERS) if early_stop else n == ITERS
-    assert not TG._GRAPHS
+    assert not CG._GRAPHS
 
 
 @pytest.mark.parametrize("delta,rebins", [(0.0, (3, 7)), (0.05, ())])
@@ -249,7 +254,7 @@ def test_pose_loop_on_tensor_operands_is_the_eager_loop(delta, rebins):
     for a, b in zip(seen["got"], seen["want"]):
         for x, y in zip(a, b):
             assert torch.equal(_bits(x), _bits(y))
-    assert not TG._GRAPHS
+    assert not CG._GRAPHS
 
 
 # (loss, best loss, last loss, early_stop_delta)
@@ -318,22 +323,49 @@ def test_tracking_loss_grad_writes_out():
         assert torch.equal(_bits(g), _bits(w))
 
 
-def test_frame_graph_registry_keeps_the_newest_per_slot():
-    """A call with the same key gets the graph kept for its ``(device,
-    use_features)``; a new key replaces it; the other ``use_features``
-    has a slot of its own. ``graph_path`` is false on CPU tensors and for
-    paired tracking."""
-    gm, _, color, depth, matches = _scene()
+def _graph_makers():
+    """``{owner: make(flag, observed, n)}``: a graph asked of the track or the
+    map registry front (``frame_graph`` / ``window_graph``) on CPU tensors,
+    for a pack of ``n`` tiles or ``n`` draws, with flag ``use_features`` or
+    ``init_mode``. The bodies never run."""
+    gm, T_init, color, depth, matches = _scene()
     raw = torch.zeros(12, 16, 256)
     counts = torch.zeros(12, dtype=torch.int32)
     gt4 = torch.zeros(12, 4, 256)
-    fns = dict(fwd_fn=None, bwd_fn=None, step_fn=None)
-    a = TG.frame_graph(raw, counts, gt4, matches, True, (CAM, 1.0), **fns)
-    assert TG.frame_graph(raw, counts, gt4, matches, True, (CAM, 1.0), **fns) is a
-    b = TG.frame_graph(raw, counts, gt4, matches, True, (CAM, 0.5), **fns)
-    assert b is not a and TG._GRAPHS == {(raw.device, True): b}
-    c = TG.frame_graph(raw[:6], counts[:6], gt4[:6], matches, False, (CAM, 1.0), **fns)
-    assert TG._GRAPHS == {(raw.device, True): b, (raw.device, False): c}
-    assert c.d_screen.shape == (6, 16, 256) and c.inliers.shape == matches.valid.shape
+    with torch.no_grad():
+        bins = bin_gaussians(preprocess(gm.means, gm.rgb, gm.quats, gm.logit_opacities,
+                                        gm.log_scales, gm.active, T_init, CAM), CAM, RCFG)
+    frames = M.build_window_frames([color], [depth], [T_init], [bins], 1, 2, device="cpu")
+    layouts = M.window_layouts(frames, gm.capacity, CAM, RCFG, RCFG.chunk_budget)
+    return {
+        "track": lambda flag, observed, n=12: TG.frame_graph(
+            raw[:n], counts[:n], gt4[:n], matches, flag, observed, None, None, None),
+        "map": lambda flag, observed, n=12: MG.window_graph(
+            gm, frames, layouts, list(range(n)), flag, observed, None, None),
+    }
+
+
+@pytest.mark.parametrize("owner", ["track", "map"])
+def test_frame_graph_registry_keeps_the_newest_per_slot(owner):
+    """A call with the same key gets the graph kept for its slot, ``(owner,
+    device, flag)``; a new key replaces it; the other flag and the other
+    owner have slots of their own. ``graph_path`` is false on CPU tensors
+    and for paired tracking."""
+    make = _graph_makers()
+    other = "map" if owner == "track" else "track"
+    kept = lambda: {slot: g for slot, (_, g) in CG._GRAPHS.items()}
+    dev = torch.device("cpu")
+    a = make[owner](True, (CAM, 1.0))
+    assert make[owner](True, (CAM, 1.0)) is a
+    b = make[owner](True, (CAM, 0.5))
+    assert b is not a and kept() == {(owner, dev, True): b}
+    c = make[owner](False, (CAM, 1.0), n=6 if owner == "track" else 100)
+    d = make[other](True, (CAM, 0.5))
+    assert kept() == {(owner, dev, True): b, (owner, dev, False): c, (other, dev, True): d}
+    if owner == "track":
+        assert c.d_screen.shape == (6, 16, 256) and c.inliers.shape == (24,)
+    else:
+        assert c.draws.shape == (128,) and c.layouts.table.shape[0] == 2
+    gm = _scene()[0]
     assert not T.graph_path(gm, RCFG)
     assert not T.graph_path(gm, dataclasses.replace(RCFG, paired=True))

@@ -1,11 +1,13 @@
 """The port's Gaussian map and pose optimizer state against the JAX package:
 ``empty_map``, ``add_points`` (dead-slot recycling, capacity clamp),
-``pose_adam_step``, and the numpy interop round trip. Tolerance 1e-6."""
+``pose_adam_step``, the numpy interop round trip and the raster config's
+conversion. Tolerance 1e-6."""
 
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gsorb_slam_tpu.core.config import TrackingConfig as JTrackingConfig
@@ -13,10 +15,12 @@ from gsorb_slam_tpu.raster.types import RasterConfig as JRasterConfig
 from gsorb_slam_tpu.splat import gaussians as jg
 from gsorb_slam_tpu_torch.core.config import TrackingConfig
 from gsorb_slam_tpu_torch.interop import (
+    TPU_LAYOUT_FIELDS,
     gaussian_map_from_numpy,
     gaussian_map_to_numpy,
     raster_config_from_dict,
 )
+from gsorb_slam_tpu_torch.raster.types import RasterConfig
 from gsorb_slam_tpu_torch.splat import gaussians as tg
 
 torch.set_num_threads(1)
@@ -120,5 +124,27 @@ def test_interop_round_trip(rng):
     jr = JRasterConfig(tile=16, tile_capacity=512, track_tile_capacity=256, chunk=64,
                        dilate_px=2.0, exact_stop=False, elem_bf16=True)
     tr = raster_config_from_dict(dataclasses.asdict(jr))
-    assert dataclasses.asdict(tr) == dataclasses.asdict(jr)
+    assert dataclasses.asdict(tr) == {k: getattr(jr, k) for k in dataclasses.asdict(tr)}
     assert (tr.tile_w_px, tr.tile_h_px) == (jr.tile_w_px, jr.tile_h_px)
+
+
+def test_raster_config_from_jax_drops_the_tpu_layout_fields():
+    """The port's ``RasterConfig`` has the JAX one's 12 fields that are not
+    TPU layout. A JAX config with every field off its default converts to
+    a port config equal to it on those 12; any other unknown key raises."""
+    names = [f.name for f in dataclasses.fields(RasterConfig)]
+    jfields = {f.name: f.default for f in dataclasses.fields(JRasterConfig)}
+    assert len(names) == 12 and set(jfields) - set(names) == set(TPU_LAYOUT_FIELDS)
+
+    def off(v):
+        if isinstance(v, bool):
+            return not v
+        return "pallas" if isinstance(v, str) else 2 * v + 1
+
+    jr = JRasterConfig(**{k: off(v) for k, v in jfields.items()})
+    assert all(getattr(jr, k) != v for k, v in jfields.items())
+    d = dataclasses.asdict(jr)
+    tr = raster_config_from_dict(d)
+    assert {k: getattr(tr, k) for k in names} == {k: getattr(jr, k) for k in names}
+    with pytest.raises(ValueError, match="not_a_field"):
+        raster_config_from_dict(dict(d, not_a_field=1))

@@ -57,8 +57,9 @@ CONFIG = {
     "Mapping": {"numIters": 3, "maxGaussians": 16384},
     "Tracking": {"numIters": 5},
 }
-RASTER = dict(blend_bf16=False, elem_bf16=False, chunk=64, tile_capacity=256,
-              track_tile_capacity=128)
+RASTER = dict(chunk=64, tile_capacity=256, track_tile_capacity=128)
+# The JAX System's side: its default raster config blends in bf16.
+JRASTER = dict(RASTER, blend_bf16=False, elem_bf16=False)
 
 
 def _feats(uv, desc, octave=None, n_pad=8):
@@ -265,7 +266,7 @@ def test_track_stereo_host_stage_matches_jax(stereo_pairs):
     ``kp_ur`` / ``kp_depth`` are the reference's."""
     ref, _ = stereo_pairs
     raster_j = dataclasses.replace(JS.System.default_raster_config(W), backend="pallas",
-                                   **RASTER)
+                                   **JRASTER)
     jsys = JS.System(jload_config(CONFIG), frontend="orb", raster=raster_j)
     tsys = S.System(system_config_from_dict(CONFIG), frontend="orb", device="cpu",
                     raster=dataclasses.replace(S.System.default_raster_config(W), **RASTER))

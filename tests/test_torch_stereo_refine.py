@@ -321,8 +321,7 @@ CONFIG = {
     "Mapping": {"numIters": 3, "maxGaussians": 16384},
     "Tracking": {"numIters": 5},
 }
-RASTER = dict(blend_bf16=False, elem_bf16=False, chunk=64, tile_capacity=256,
-              track_tile_capacity=128)
+RASTER = dict(chunk=64, tile_capacity=256, track_tile_capacity=128)
 STEREO_SPANS = ("fe.stereo_depth", "fe.stereo_orb", "fe.stereo_match")
 STEREO_COUNTERS = ("stereo_keypoints", "stereo_matches")
 

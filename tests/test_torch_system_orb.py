@@ -42,8 +42,9 @@ from gsorb_slam_tpu_torch.slam import system as S
 torch.set_num_threads(1)
 
 W, H, N_FRAMES, SEED = 128, 96, 4, 0
-RASTER = dict(blend_bf16=False, elem_bf16=False, chunk=64, tile_capacity=256,
-              track_tile_capacity=128)
+RASTER = dict(chunk=64, tile_capacity=256, track_tile_capacity=128)
+# The JAX System's side: its default raster config blends in bf16.
+JRASTER = dict(RASTER, blend_bf16=False, elem_bf16=False)
 GM_FIELDS = ("means", "rgb", "quats", "logit_opacities", "log_scales", "active", "count",
              "adam_t", "scene_radius", "max_z")
 
@@ -96,7 +97,7 @@ def runs():
     cfg = _config(ds)
     jsys = JS.System(_with_init_iters(jload_config(cfg)), seed=SEED, frontend="orb",
                      raster=dataclasses.replace(JS.System.default_raster_config(W),
-                                                backend="pallas", **RASTER))
+                                                backend="pallas", **JRASTER))
     tsys = S.System(_with_init_iters(system_config_from_dict(cfg)), seed=SEED, frontend="orb",
                     device="cpu",
                     raster=dataclasses.replace(S.System.default_raster_config(W), **RASTER))
@@ -190,7 +191,7 @@ def test_orb_checkpoint_round_trip_and_reset(runs, tmp_path):
     # The port's state loads into the JAX System too.
     jsys = JS.System(_with_init_iters(jload_config(runs["cfg"])), seed=SEED, frontend="orb",
                      raster=dataclasses.replace(JS.System.default_raster_config(W),
-                                                backend="pallas", **RASTER))
+                                                backend="pallas", **JRASTER))
     jsys.load_checkpoint(str(tmp_path))
     _check_frontend_equal(src.fe, jsys.fe, src.loop_closer, jsys.loop_closer)
 

@@ -34,8 +34,9 @@ CONFIG = {
     "Mapping": {"numIters": 5, "maxGaussians": 16384},
     "Tracking": {"numIters": 10},
 }
-RASTER = dict(blend_bf16=False, elem_bf16=False, chunk=64, tile_capacity=256,
-              track_tile_capacity=128)
+RASTER = dict(chunk=64, tile_capacity=256, track_tile_capacity=128)
+# The JAX System's side: its default raster config blends in bf16.
+JRASTER = dict(RASTER, blend_bf16=False, elem_bf16=False)
 SEED = 0
 
 
@@ -67,7 +68,7 @@ def test_system_matches_jax(monkeypatch):
     _record_windows(monkeypatch, W, twin)
 
     jsys = JS.System(_config(jload_config(CONFIG)), seed=SEED, raster=dataclasses.replace(
-        JS.System.default_raster_config(64), backend="pallas", **RASTER))
+        JS.System.default_raster_config(64), backend="pallas", **JRASTER))
     tsys = S.System(_config(system_config_from_dict(CONFIG)), seed=SEED, device="cpu",
                     raster=dataclasses.replace(S.System.default_raster_config(64), **RASTER))
     key = [jax.random.PRNGKey(SEED)]

@@ -38,8 +38,9 @@ CONFIG = {
     "Mapping": {"numIters": 5, "maxGaussians": 16384},
     "Tracking": {"numIters": 10},
 }
-RASTER = dict(blend_bf16=False, elem_bf16=False, chunk=64, tile_capacity=256,
-              track_tile_capacity=128)
+RASTER = dict(chunk=64, tile_capacity=256, track_tile_capacity=128)
+# The JAX System's side: its default raster config blends in bf16.
+JRASTER = dict(RASTER, blend_bf16=False, elem_bf16=False)
 SEED = 0
 
 
@@ -100,7 +101,7 @@ def test_reset_matches_jax_across_the_reset(monkeypatch):
     ds = JD.SyntheticDataset(JCamera(fx=60.0, fy=60.0, cx=32.0, cy=24.0, width=64, height=48),
                              n_frames=3, n_splats=400, motion_scale=0.2)
     jsys = JS.System(_config(jload_config(CONFIG)), seed=SEED, raster=dataclasses.replace(
-        JS.System.default_raster_config(64), backend="pallas", **RASTER))
+        JS.System.default_raster_config(64), backend="pallas", **JRASTER))
     tsys = S.System(_config(system_config_from_dict(CONFIG)), seed=SEED, device="cpu",
                     raster=dataclasses.replace(S.System.default_raster_config(64), **RASTER))
     key = [jax.random.PRNGKey(SEED)]

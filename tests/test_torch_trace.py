@@ -29,8 +29,7 @@ from gsorb_slam_tpu_torch.utils.trace import Tracer
 torch.set_num_threads(1)
 
 W, H = 128, 96
-RASTER = dict(blend_bf16=False, elem_bf16=False, chunk=64, tile_capacity=256,
-              track_tile_capacity=128)
+RASTER = dict(chunk=64, tile_capacity=256, track_tile_capacity=128)
 MAP_PARTS = ("map.prune", "map.bins", "map.render", "map.densify", "map.window",
              "map.layouts", "map.iter", "map.wait")
 

@@ -24,9 +24,9 @@ from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.core.config import TrackingConfig
 from gsorb_slam_tpu_torch.core.transforms import pose_to_matrix
 from gsorb_slam_tpu_torch.raster import RasterConfig, render
-from gsorb_slam_tpu_torch.slam import track_graph as TG
 from gsorb_slam_tpu_torch.slam import tracking as T
 from gsorb_slam_tpu_torch.splat.gaussians import empty_map
+from gsorb_slam_tpu_torch.utils import cuda_graphs as CG
 from gsorb_slam_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
@@ -43,9 +43,9 @@ KERNELS = ("fused_track_fast", "preprocess_fwd", "preprocess_bwd")
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    TG._GRAPHS.clear()
+    CG._GRAPHS.clear()
     yield torch.device("cuda")
-    TG._GRAPHS.clear()
+    CG._GRAPHS.clear()
 
 
 def _scene(dev, n=3000, capacity=4096):
@@ -182,7 +182,7 @@ def test_track_graph_matches_eager_loop(dev, monkeypatch, use_features):
         assert all(got[2][k] == ITERS for k in KERNELS), got[2]
         assert tracer.totals["track_graph_captures"] == 1
         assert tracer.totals["track_graph_replays"] == replays
-    assert [(d.type, f) for d, f in TG._GRAPHS] == [("cuda", use_features)]
+    assert [(o, d.type, f) for o, d, f in CG._GRAPHS] == [("track", "cuda", use_features)]
 
 
 def test_track_graph_early_stop_matches_eager_loop(dev, monkeypatch):
@@ -222,15 +222,16 @@ def test_track_graph_keys(dev, monkeypatch):
         k1 = "fused_track_exact" if rcfg.exact_stop else "fused_track_fast"
         assert got[2][k1] == got[2]["preprocess_fwd"] == got[2]["preprocess_bwd"] == 24
         assert tracer.totals["track_graph_captures"] == captures
-    assert sorted((d.type, f) for d, f in TG._GRAPHS) == [("cuda", False), ("cuda", True)]
+    assert sorted((o, d.type, f) for o, d, f in CG._GRAPHS) == [("track", "cuda", False),
+                                                               ("track", "cuda", True)]
 
     paired = dataclasses.replace(RCFG, paired=True)
-    TG._GRAPHS.clear()
+    CG._GRAPHS.clear()
     want = _solve(monkeypatch, scene, tcfg, paired, eager=True)
     with tracer.current():
         got = _solve(monkeypatch, scene, tcfg, paired)
     _assert_same_solve(got, want, k1=False)
-    assert got[2]["paired_track"] == 24 and not TG._GRAPHS
+    assert got[2]["paired_track"] == 24 and not CG._GRAPHS
     assert tracer.totals["track_graph_captures"] == 4
 
 
