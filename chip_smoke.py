@@ -212,6 +212,17 @@ Phases (any failed check makes the exit code non-zero):
 35. ``scripts.make_tum_disk`` (3 TUM-like VGA frames generated on the card,
     the TUM and ScanNet layouts) read back through ``slam.dataset``, and
     ``scripts.pose2traj`` on the ScanNet directory.
+36. K10f / K10b (the mapping path's attribute table and its adjoint) at C =
+    2^20 rows of ``adjoint_edge_map`` (every branch: inactive, behind the
+    near plane, off screen, past the Jacobian clamp, faint, det not
+    positive, the quaternion-norm floor; scale modifier 0.9): K10f's table
+    and radii bit for bit equal to the plain composite
+    ``attr_cols(preprocess(...))`` (and its largest gap measured), K10b's
+    five gradients within 1e-5 of each group's largest |g| per row kind of
+    the plain adjoint and of autograd through the composite (a NaN or inf
+    where the reference has none fails), one launch each, two launches
+    bitwise equal, their ms by CUDA events beside the plain versions' (the
+    composite's forward, and its autograd backward) and their bounds; phase 8 also checks K10f = K10b = 100 launches.
 Phase 18 also runs ``profile_frontend`` (6 frames at 320x240).
 It prints a ``kernels`` JSON line (each kernel's launches on its main path
 plus the stereo System's and phases 28-35's), the card's ``nvidia-smi``
@@ -659,7 +670,8 @@ def phase_mapping(torch, checks, gm, cam, rcfg, dev) -> dict:
     launches = dict(_build.launches)
     print(f"# mapping main path launches: {json.dumps(launches)}", flush=True)
     for name, want in (("blend_forward", 1), ("blend_flat_fwd", n_iters),
-                       ("blend_flat_bwd", n_iters)):
+                       ("blend_flat_bwd", n_iters), ("map_attr_fwd", n_iters),
+                       ("map_attr_bwd", n_iters)):
         checks.record(f"{name} launches == {want}", launches[name], want,
                       ok=launches[name] == want)
     print(f"# mapping step: {int(n_added)} splats added by densify (count {int(gm1.count)}), "
@@ -711,6 +723,110 @@ def phase_mapping(torch, checks, gm, cam, rcfg, dev) -> dict:
     layout = window_layouts(frames, gm1.capacity, cam, rcfg, budget)[0]
     return dict(gm=gm1, layout=layout, pose=poses[0], n_iters=n_iters, launches=launches,
                 frames=frames, gts=gts, poses=poses)
+
+
+def phase_map_attr(torch, checks, dev) -> dict:
+    """Phase 36: K10f / K10b against their plain versions at C = 2^20."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.core.camera import Camera
+    from gsorb_slam_tpu_torch.profiling.common import (
+        MAP_EDGE_KINDS,
+        PROJ_ADJ_OPS_PER_INSTANCE,
+        PROJ_OPS_PER_INSTANCE,
+        adjoint_edge_map,
+        bound_ms,
+    )
+    from gsorb_slam_tpu_torch.raster.map_attr import (
+        map_attr_table_backward,
+        map_attr_table_backward_plain,
+        map_attr_table_forward,
+        map_attr_table_plain,
+    )
+
+    cam = Camera(**CAM_KW)
+    m = adjoint_edge_map(1 << 20, 7, cam, device=dev)
+    C, sm = m[0].shape[0], 0.9
+    bits = lambda t: t.view(torch.int32)
+
+    def gap(got, want) -> float:
+        """The largest |got - want|; a NaN or an inf in one and not at the
+        same place in the other reads inf."""
+        d = torch.nan_to_num((got - want).abs(), nan=math.inf)
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        return float(torch.where(same, torch.zeros_like(d), d).max())
+
+    kind = torch.arange(C, device=dev) % len(MAP_EDGE_KINDS)
+
+    def rel_gap(got, want) -> float:
+        """The largest gap over the groups and row kinds, each of its kind's
+        largest |want| (inf where that is not finite)."""
+        err = 0.0
+        for w, h in zip(want, got):
+            for k in range(len(MAP_EDGE_KINDS)):
+                rows = kind == k
+                scale, e = float(w[rows].abs().max()), gap(h[rows], w[rows])
+                if not math.isfinite(scale):
+                    return math.inf
+                err = max(err, e / scale if scale > 0 else (0.0 if e == 0 else math.inf))
+        return err
+
+    with torch.no_grad():
+        n0 = dict(_build.launches)
+        cols, radius = map_attr_table_forward(*m, cam, sm)
+        want_cols, want_radius = map_attr_table_plain(*m, cam, sm)
+        ok = torch.equal(bits(cols), bits(want_cols)) and torch.equal(bits(radius),
+                                                                       bits(want_radius))
+        n_diff = int((bits(cols) != bits(want_cols)).any(1).sum())
+        fwd_err = max(gap(cols, want_cols), gap(radius, want_radius))
+        checks.record("K10f table and radii bit for bit equal to the plain composite (rows "
+                      "that differ)", n_diff, 0, ok=ok)
+        checks.record("K10f table and radii, largest |K10f - plain|", fwd_err, 0.0)
+        g = torch.randn(cols.shape, generator=torch.Generator().manual_seed(11)).to(dev)
+        g[:, 10:] = 0.0
+        got = map_attr_table_backward(g, *m, cam, sm)
+        want = map_attr_table_backward_plain(g, *m, cam, sm)
+        err_plain = rel_gap(got, want)
+        checks.record("K10b gradients against the plain adjoint (per group and row kind, "
+                      "of the largest |g|)", err_plain, 1e-5)
+        launched = {k: _build.launches[k] - n0[k] for k in ("map_attr_fwd", "map_attr_bwd")}
+        checks.record("K10f / K10b one launch each", 0.0, 0.0,
+                      ok=launched == {"map_attr_fwd": 1, "map_attr_bwd": 1})
+        cols2, radius2 = map_attr_table_forward(*m, cam, sm)
+        got2 = map_attr_table_backward(g, *m, cam, sm)
+        checks.record("K10f / K10b two launches bitwise equal", 0.0, 0.0,
+                      ok=torch.equal(bits(cols2), bits(cols)) and torch.equal(
+                          bits(radius2), bits(radius))
+                      and all(torch.equal(bits(a), bits(b)) for a, b in zip(got, got2)))
+        fwd_ms = time_ms(torch, lambda: map_attr_table_forward(*m, cam, sm), 50)
+        bwd_ms = time_ms(torch, lambda: map_attr_table_backward(g, *m, cam, sm), 50)
+        fwd_plain_ms = time_ms(torch, lambda: map_attr_table_plain(*m, cam, sm), 10)
+
+    params = [p.clone().requires_grad_(True) for p in m[:5]]
+    with torch.enable_grad():
+        table, _ = map_attr_table_plain(*params, *m[5:], cam, sm)
+
+    def plain_bwd():
+        return torch.autograd.grad(table, params, g, retain_graph=True)
+
+    err_auto = rel_gap(got, plain_bwd())
+    checks.record("K10b gradients against autograd through the plain composite (per group "
+                  "and row kind, of the largest |g|)", err_auto, 1e-5)
+    bwd_plain_ms = time_ms(torch, plain_bwd, 10)
+    # K10f reads the 14 parameter floats and active of each row and writes
+    # its 16-float row and radius; K10b reads 10 cotangents, the parameters
+    # but rgb, active, and writes 14 gradient floats.
+    b_f = bound_ms(C * (14 * 4 + 1 + 17 * 4), C * PROJ_OPS_PER_INSTANCE)
+    b_b = bound_ms(C * (10 * 4 + 11 * 4 + 1 + 14 * 4),
+                   C * (PROJ_OPS_PER_INSTANCE + PROJ_ADJ_OPS_PER_INSTANCE))
+    print(f"# K10f map_attr_fwd at C = {C}: {fwd_ms:.4f} ms (bound {b_f[0]:.4f} by {b_f[1]}; "
+          f"the plain composite's forward {fwd_plain_ms:.3f} ms; largest |K10f - plain| "
+          f"{fwd_err:.3e}); K10b map_attr_bwd {bwd_ms:.4f} ms (bound {b_b[0]:.4f} by {b_b[1]}; "
+          f"autograd through the composite {bwd_plain_ms:.3f} ms; of the largest |g|, "
+          f"{err_plain:.3e} from the plain adjoint, {err_auto:.3e} from autograd); launches "
+          f"{json.dumps(launched)}", flush=True)
+    return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain_ms=fwd_plain_ms,
+                bwd_plain_ms=bwd_plain_ms, bound_f=b_f, bound_b=b_b, fwd_err=fwd_err,
+                err=max(err_plain, err_auto))
 
 
 def phase_system(torch, checks, dev) -> dict:
@@ -2925,6 +3041,9 @@ def main() -> int:
     # ---- 8-9. the mapping step and its timings ----
     mp = phase_mapping(torch, checks, gm, cam, rcfg, dev)
 
+    # ---- 36. K10f / K10b against their plain versions at 2^20 rows ----
+    k10 = phase_map_attr(torch, checks, dev)
+
     # ---- 10. K7 against its plain version on phase 4's pack ----
     rcfg_e = dataclasses.replace(rcfg_t, exact_stop=True)
     with torch.no_grad():
@@ -3183,7 +3302,8 @@ def main() -> int:
         counter = {"K1": "fused_track_fast", "K2f": "preprocess_fwd", "K2b": "preprocess_bwd",
                    "K3": "blend_forward", "K4": "blend_flat_fwd", "K5": "blend_flat_bwd",
                    "K6": "blend_backward", "K7": "fused_track_exact", "K8": "paired_track",
-                   "K9": "fused_track_ablate"}[name.split()[0]]
+                   "K9": "fused_track_ablate", "K10f": "map_attr_fwd",
+                   "K10b": "map_attr_bwd"}[name.split()[0]]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches_n + stereo["launches"][counter]
                 + tool_launches.get(counter, 0), "max_abs_err": err,
@@ -3222,6 +3342,14 @@ def main() -> int:
               "scripts/profile_fused_ablate.py:255", k9["launches"], k9["err"],
               k9["table"]["variants"]["full"]["ms"], k9["plain_ms"],
               k9["table"]["bound_ms"]["full"]["ms"], k9["table"]["bound_ms"]["full"]["by"]),
+        entry("K10f map_attr_fwd", "gsorb_slam_tpu_torch/csrc/map_attr.cu",
+              "none (XLA's fusion of gsorb_slam_tpu/raster/preprocess.py)",
+              mp["launches"]["map_attr_fwd"], k10["fwd_err"], k10["fwd_ms"], k10["fwd_plain_ms"],
+              *k10["bound_f"]),
+        entry("K10b map_attr_bwd", "gsorb_slam_tpu_torch/csrc/map_attr.cu",
+              "none (XLA's autodiff of gsorb_slam_tpu/raster/preprocess.py)",
+              mp["launches"]["map_attr_bwd"], k10["err"], k10["bwd_ms"], k10["bwd_plain_ms"],
+              *k10["bound_b"]),
     ]
     for k in kernels:
         print(f"# {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "

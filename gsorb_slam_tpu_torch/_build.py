@@ -29,9 +29,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = (
     "blend_backward.cu", "blend_flat.cu", "blend_forward.cu", "fused_track.cu",
-    "preprocess_instances.cu",
+    "map_attr.cu", "preprocess_instances.cu",
 )
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "ewa.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -53,6 +53,8 @@ launches: dict[str, int] = {
     "fused_track_exact": 0,  # K7
     "paired_track": 0,  # K8
     "fused_track_ablate": 0,  # K9, every variant
+    "map_attr_fwd": 0,  # K10f
+    "map_attr_bwd": 0,  # K10b
 }
 
 _lock = threading.Lock()
@@ -66,6 +68,7 @@ ptxas_report: list[str] = []
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # K9's variants, one entry point each (csrc/fused_track.cu).
 ABLATE_VARIANTS = ("full", "fwd", "noexp", "noreduce", "min", "half2")
 # K1, K7, K8 and K9's variants share one argument list.
@@ -82,6 +85,8 @@ _SIGNATURES = {
     "gsorb_preprocess_fwd": [_P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     "gsorb_preprocess_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     "gsorb_preprocess_bwd_max_blocks": [],
+    "gsorb_map_attr_fwd": [_P] * 9 + [_L] + [_F] * 9 + [_P],
+    "gsorb_map_attr_bwd": [_P] * 12 + [_L] + [_F] * 9 + [_P],
 }
 
 

@@ -23,8 +23,9 @@
 // the contiguous slot axis (coalesced). K2b is one reverse pass: each thread
 // evaluates ewa_rows once, keeping its intermediates in registers (Ewa),
 // and ewa_adjoint sweeps back from the six cotangent rows (u, v, ca, cb, cc,
-// z) to the 12 pose numbers. The adjoint is written by hand: the reference
-// linearizes _ewa_rows with jax.vjp inside its kernel, which CUDA has no
+// z) to the 12 pose numbers (the steps K10 shares with them, under K2's
+// Fused arithmetic, are ewa.cuh's). The adjoint is written by hand: the
+// reference linearizes _ewa_rows with jax.vjp inside its kernel, which CUDA has no
 // counterpart of, and twelve forward-mode passes on dual numbers, one per
 // pose number, would cost ~8x the operations. It takes the derivatives
 // the JAX VJP takes at every select and clip, and
@@ -41,13 +42,12 @@
 // it spills (and is then 14% faster), and keeping the pose in shared memory
 // frees no registers (PERF.md).
 #include "common.cuh"
+#include "ewa.cuh"
 
 using namespace gsorb;
 
 namespace {
 
-constexpr float NEAR_CULL = 0.2f;
-constexpr float LOW_PASS = 0.3f;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 // K2b's grid: one slot per thread up to this many blocks, then a grid-stride
@@ -66,7 +66,7 @@ struct Ewa {
   float safe_z, txr, tyr, txz, tyz;
   bool in_front, x_in, y_in, valid;
   float M[3][3];  // (sm R) cov_w
-  float k00, k01, k02, k11, k12, k22;
+  float k[6];     // cov_cam's upper entries k00, k01, k02, k11, k12, k22
   float fx_z, fy_z, j02, j12, a, b, c, inv_det;
 };
 
@@ -98,26 +98,13 @@ __device__ __forceinline__ Ewa ewa_rows(const float* raw, const float* rt,
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) Rs[i][j] = rt[3 * i + j] * cam.sm;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      e.M[i][j] = Rs[i][0] * cw[0][j] + Rs[i][1] * cw[1][j] + Rs[i][2] * cw[2][j];
-  auto km = [&](int i, int j) {
-    return e.M[i][0] * Rs[j][0] + e.M[i][1] * Rs[j][1] + e.M[i][2] * Rs[j][2];
-  };
-  e.k00 = km(0, 0), e.k01 = km(0, 1), e.k02 = km(0, 2);
-  e.k11 = km(1, 1), e.k12 = km(1, 2), e.k22 = km(2, 2);
+  camera_cov<Fused>(Rs, cw, e.M, e.k);
 
   e.fx_z = cam.fx / e.safe_z;
   e.fy_z = cam.fy / e.safe_z;
   e.j02 = -(e.fx_z * e.txz);
   e.j12 = -(e.fy_z * e.tyz);
-  e.a = e.fx_z * (e.fx_z * e.k00 + e.j02 * e.k02) + e.j02 * (e.fx_z * e.k02 + e.j02 * e.k22) +
-        LOW_PASS;
-  e.b = e.fx_z * (e.fy_z * e.k01 + e.j12 * e.k02) + e.j02 * (e.fy_z * e.k12 + e.j12 * e.k22);
-  e.c = e.fy_z * (e.fy_z * e.k11 + e.j12 * e.k12) + e.j12 * (e.fy_z * e.k12 + e.j12 * e.k22) +
-        LOW_PASS;
+  ewa_abc<Fused>(e.fx_z, e.fy_z, e.j02, e.j12, e.k, e.a, e.b, e.c);
 
   const float det = e.a * e.c - e.b * e.b;
   const bool det_ok = det > 0.f;
@@ -152,30 +139,14 @@ __device__ __forceinline__ void ewa_adjoint(const Ewa& e, const float* raw, cons
   float d_tz = 0.f;
   if (e.valid) {
     // ca = c / det, cb = -b / det, cc = a / det.
-    const float id = e.inv_det;
-    const float d_inv = g[2] * e.c - g[3] * e.b + g[4] * e.a;
-    const float d_det = -d_inv * id * id;
-    const float da = g[4] * id + d_det * e.c;
-    const float db = -g[3] * id - 2.f * d_det * e.b;
-    const float dc = g[2] * id + d_det * e.a;
+    float da, db, dc;
+    conic_adjoint(g[2], g[3], g[4], e.a, e.b, e.c, e.inv_det, da, db, dc);
     d_tz = g[5];
-    // a, b, c as functions of fx_z, fy_z, j02, j12 and the six Km entries.
-    float d_fx = 2.f * da * (e.fx_z * e.k00 + e.j02 * e.k02) +
-                 db * (e.fy_z * e.k01 + e.j12 * e.k02);
-    float d_fy = db * (e.fx_z * e.k01 + e.j02 * e.k12) +
-                 2.f * dc * (e.fy_z * e.k11 + e.j12 * e.k12);
-    const float d_j02 = 2.f * da * (e.fx_z * e.k02 + e.j02 * e.k22) +
-                        db * (e.fy_z * e.k12 + e.j12 * e.k22);
-    const float d_j12 = db * (e.fx_z * e.k02 + e.j02 * e.k22) +
-                        2.f * dc * (e.fy_z * e.k12 + e.j12 * e.k22);
-    // The Km cotangent W (symmetric, upper entries twice their own
-    // cotangent's off the diagonal): d Rs = W M, since Km = Rs cov_w Rs^T.
-    const float w00 = 2.f * da * e.fx_z * e.fx_z;
-    const float w11 = 2.f * dc * e.fy_z * e.fy_z;
-    const float w22 = 2.f * (da * e.j02 * e.j02 + db * e.j02 * e.j12 + dc * e.j12 * e.j12);
-    const float w01 = db * e.fx_z * e.fy_z;
-    const float w02 = 2.f * da * e.fx_z * e.j02 + db * e.fx_z * e.j12;
-    const float w12 = db * e.j02 * e.fy_z + 2.f * dc * e.fy_z * e.j12;
+    // a, b, c as functions of fx_z, fy_z, j02, j12 and the six Km entries;
+    // w: d Rs = W M, since Km = Rs cov_w Rs^T.
+    float d_fx, d_fy, d_j02, d_j12, w[6];
+    abc_adjoint(da, db, dc, e.fx_z, e.fy_z, e.j02, e.j12, e.k, d_fx, d_fy, d_j02, d_j12, w);
+    const float w00 = w[0], w01 = w[1], w02 = w[2], w11 = w[3], w12 = w[4], w22 = w[5];
     // j02 = -fx_z txz, j12 = -fy_z tyz.
     d_fx -= d_j02 * e.txz;
     d_fy -= d_j12 * e.tyz;

@@ -1,5 +1,6 @@
 """The parts the port's profilers share: the bench scene, the timers, the
-bound and the profiler call.
+bound and the profiler call; and the mapping kernels' edge map, which
+``chip_smoke.py`` and the tests build too.
 
 Every profiler runs on the card by default and on the CPU only with
 ``--cpu``; without a card and without ``--cpu`` it raises. A CPU run takes
@@ -132,6 +133,57 @@ def bench_scene(dev: torch.device, cam: Camera, n: int = N_SPLATS,
         torch.as_tensor(rgb, device=dev), torch.as_tensor(means[:, 2], device=dev),
         torch.ones(n, dtype=torch.bool, device=dev), cam.fx, cam.fy,
     )
+
+
+# The mapping kernels' edge map (``raster/map_attr.py``, K10f / K10b): its
+# row kinds, by row index mod 8.
+MAP_EDGE_KINDS = ("plain", "inactive", "behind", "off_screen", "jacobian_clamp", "faint",
+                  "det_nan", "qn_floor")
+
+
+def adjoint_edge_map(
+    n: int, seed: int, cam: Camera, dtype: torch.dtype = torch.float32,
+    device: torch.device | str = "cpu",
+) -> tuple[torch.Tensor, ...]:
+    """``(means, rgb, quats, logit_opacities, log_scales, active, T_cw)`` of
+    ``n`` splats whose row ``i`` is of kind ``MAP_EDGE_KINDS[i % 8]``, seen
+    from a pose near the identity, so that the projection and its adjoint
+    take every branch: live splats on screen; inactive ones; behind the near
+    plane; off screen beside it; on screen but past the Jacobian's
+    1.3 tan(fov / 2) clamp (large splats just outside the frame); opacity
+    below 1/255; one log-scale so large that ``a c`` overflows, so ``det``
+    is NaN (not positive); a quaternion below the norm's 1e-12 floor."""
+    rng = np.random.default_rng(seed)
+    kind = np.arange(n) % len(MAP_EDGE_KINDS)
+    tx, ty = cam.tan_half_fov_x, cam.tan_half_fov_y
+    z = rng.uniform(0.8, 4.0, n)
+    z = np.where(kind == 2, rng.uniform(-1.0, 0.15, n), z)
+    z = np.where(kind == 4, rng.uniform(1.5, 3.0, n), z)
+    sign = rng.choice([-1.0, 1.0], n)
+    x = z * tx * rng.uniform(-0.9, 0.9, n)
+    x = np.where(kind == 3, sign * np.abs(z) * tx * rng.uniform(1.6, 3.0, n), x)
+    x = np.where(kind == 4, sign * z * tx * rng.uniform(1.35, 1.5, n), x)
+    y = z * ty * rng.uniform(-0.9, 0.9, n) * np.where(kind == 4, 0.5, 1.0)
+    log_scales = np.log(rng.uniform(0.01, 0.08, (n, 3)))
+    log_scales[kind == 3] = np.log(rng.uniform(0.005, 0.02, (int((kind == 3).sum()), 3)))
+    log_scales[kind == 4] = np.log(rng.uniform(0.3, 0.5, (int((kind == 4).sum()), 3)))
+    log_scales[kind == 6, 0] = 25.0 if dtype == torch.float32 else 184.0
+    quats = rng.normal(size=(n, 4)) * np.where(kind == 7, 1e-14, 1.0)[:, None]
+    logit = rng.uniform(-2.0, 4.0, n)
+    logit = np.where(kind == 4, 3.0, logit)
+    logit = np.where(kind == 5, rng.uniform(-9.0, -6.0, n), logit)
+    # The camera-frame points in the world of T_cw = [R | t].
+    ang = np.array([0.02, -0.015, 0.01])
+    th = np.linalg.norm(ang)
+    kx = np.array([[0, -ang[2], ang[1]], [ang[2], 0, -ang[0]], [-ang[1], ang[0], 0]]) / th
+    R = np.eye(3) + np.sin(th) * kx + (1 - np.cos(th)) * kx @ kx
+    t = np.array([0.05, -0.03, 0.02])
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = R, t
+    means = (np.stack([x, y, z], -1) - t) @ R
+    to = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return (to(means), to(rng.uniform(0.0, 1.0, (n, 3))), to(quats), to(logit), to(log_scales),
+            torch.as_tensor(kind != 1, device=device), to(T))
 
 
 def bench_raster_config(**kw) -> RasterConfig:

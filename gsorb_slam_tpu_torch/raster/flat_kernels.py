@@ -61,16 +61,18 @@ from gsorb_slam_tpu_torch.raster.types import RasterConfig, RenderOutput
 
 
 def pack_instances_flat(
-    prep: Preprocessed, cbins: ChunkBins, pack_aux: PackAux | None = None
+    prep: Preprocessed | torch.Tensor, cbins: ChunkBins, pack_aux: PackAux | None = None
 ) -> torch.Tensor:
-    """Gather instance attributes into the flat ``[MC, 16, K]`` layout.
+    """Gather instance attributes into the flat ``[MC, 16, K]`` layout, from
+    ``prep`` or from its attribute table ``[C + 1, 16]`` (``attr_cols``, or
+    ``map_attr.map_attr_table``'s).
 
     ``pack_aux`` switches the gather's backward to the fixed-order sorted
     segment sum; without it autograd's scatter-add is used (the plain
     version; on CUDA its order varies from run to run)."""
     MC, K = cbins.indices.shape
-    C = prep.depth.shape[0]
-    cols = attr_cols(prep)
+    cols = attr_cols(prep) if isinstance(prep, Preprocessed) else prep
+    C = cols.shape[0] - 1
     if pack_aux is not None:
         rows = _RowsGatherSorted.apply(cols, pack_aux)
     else:
@@ -337,17 +339,19 @@ def blend_flat(
 
 
 def render_flat(
-    prep: Preprocessed,
+    prep: Preprocessed | tuple[torch.Tensor, torch.Tensor],
     cbins: ChunkBins,
     cam: Camera,
     cfg: RasterConfig,
     bg: float = 0.0,
     pack_aux: PackAux | None = None,
 ) -> RenderOutput:
-    """The flat-chunk mapping render (counterpart of ``render_pallas_flat``):
-    one gather bounded by the live instance count, then the flat blend.
-    The median depth carries no gradient; the background adds
-    ``final_t * bg``."""
-    packed = pack_instances_flat(prep, cbins, pack_aux)
+    """The flat-chunk mapping render (counterpart of ``render_pallas_flat``)
+    of ``prep`` or of its ``(attribute table, radius)``
+    (``map_attr.map_attr_table``): one gather bounded by the live instance
+    count, then the flat blend. The median depth carries no gradient; the
+    background adds ``final_t * bg``."""
+    cols, radius = (attr_cols(prep), prep.radius) if isinstance(prep, Preprocessed) else prep
+    packed = pack_instances_flat(cols, cbins, pack_aux)
     out = blend_flat(packed, cbins, cam, cfg)
-    return render_output_from_tiles(out, cam, cfg, bg, prep.radius)
+    return render_output_from_tiles(out, cam, cfg, bg, radius)

@@ -2,13 +2,12 @@
 package jits ``map_window`` instead).
 
 On CUDA tensors :func:`~gsorb_slam_tpu_torch.slam.mapping.map_window` runs
-each iteration (about 1,180 launches from Python) as two bodies of a
+each iteration (about 320 launches from Python) as two bodies of a
 :class:`~gsorb_slam_tpu_torch.utils.cuda_graphs.Replay`:
 
 - ``G_grad``: the loss on this iteration's window frame and its gradient
-  w.r.t. the five splat parameter groups (preprocess, pack gather, K4,
-  the loss with SSIM, K5, the sorted segment sum, the preprocess
-  adjoint);
+  w.r.t. the five splat parameter groups (K10f's attribute table, pack
+  gather, K4, the loss with SSIM, K5, the sorted segment sum, K10b);
 - ``G_step``: the masked Adam step over the five groups, written in place
   into the map's fixed buffers.
 

@@ -11,9 +11,12 @@
 - :func:`seed_from_frame` = ``InitGaussianPoint`` (``src/Render.cc:666-707``).
 
 The render always takes the flat-chunk path
-(:func:`~gsorb_slam_tpu_torch.raster.flat_kernels.render_flat`): K4 / K5 on
-CUDA tensors, their plain versions on CPU tensors. Each window frame's chunk
-layout and pack residuals are built once per :func:`map_window` call and
+(:func:`~gsorb_slam_tpu_torch.raster.flat_kernels.render_flat`) from the
+splats' attribute table
+(:func:`~gsorb_slam_tpu_torch.raster.map_attr.map_attr_table`): K10f / K10b
+and K4 / K5 on CUDA tensors, their plain versions on CPU tensors. Each
+window frame's chunk layout and pack residuals are built once per
+:func:`map_window` call and
 reused by every iteration on that frame. The iteration loop runs on the host
 (one Python iteration per Adam step); the frame of each step is drawn from
 a ``torch.Generator``. On CUDA tensors each iteration replays two CUDA
@@ -24,8 +27,9 @@ tracking loop shares); CPU tensors run the eager code.
 Spans (``utils/trace.py``): ``map.layouts`` for the layouts of a
 :func:`map_window` call (and loading its graph), ``map.iter`` for each of
 its iterations; the layouts' host reads are waits of the open layer.
-Counters: ``map_graph_captures`` (captures of the two graphs) and
-``map_graph_replays`` (iterations replayed).
+Counters: ``map_graph_captures`` (captures of the two graphs),
+``map_graph_replays`` (iterations replayed) and ``map_prep_kernels`` (K10b
+launches, replayed or eager: one an iteration on the card).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from gsorb_slam_tpu_torch import _build
 from gsorb_slam_tpu_torch.core.camera import Camera, backproject, pixel_grid
 from gsorb_slam_tpu_torch.core.config import MappingConfig
 from gsorb_slam_tpu_torch.core.transforms import invert_se3, transform_points
@@ -42,7 +47,7 @@ from gsorb_slam_tpu_torch.ops.losses import l1_mapping, ssim
 from gsorb_slam_tpu_torch.raster.binning import ChunkBins, TileBins, chunk_layout, tile_grid_shape
 from gsorb_slam_tpu_torch.raster.blend_kernels import PackAux, flat_pack_grad_aux
 from gsorb_slam_tpu_torch.raster.flat_kernels import render_flat
-from gsorb_slam_tpu_torch.raster.preprocess import preprocess
+from gsorb_slam_tpu_torch.raster.map_attr import map_attr_table
 from gsorb_slam_tpu_torch.raster.types import RasterConfig, RenderOutput
 from gsorb_slam_tpu_torch.slam.map_graph import MapGraph, window_graph
 from gsorb_slam_tpu_torch.splat.gaussians import (
@@ -251,11 +256,11 @@ def frame_loss_and_grads(
     params = {n: getattr(gm, n).detach().requires_grad_(True) for n in PARAM_NAMES}
     with torch.enable_grad():
         g2 = dataclasses.replace(gm, **params)
-        prep = preprocess(
+        table = map_attr_table(
             g2.means, g2.rgb, g2.quats, g2.logit_opacities, g2.log_scales, g2.active,
             pose, cam, mcfg.scale_modifier,
         )
-        out = render_flat(prep, layout.cbins, cam, rcfg, bg=mcfg.background_color,
+        out = render_flat(table, layout.cbins, cam, rcfg, bg=mcfg.background_color,
                           pack_aux=layout.pack_aux)
         loss = mapping_loss(g2, out, color, depth, mcfg, init_mode)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
@@ -320,7 +325,7 @@ def _window_graph(gm, frames, layouts, frame_ids, cam, mcfg, rcfg, init_mode) ->
     def step_fn(g: MapGraph, grads):
         g.write_state(adam_step(g.gm, grads, map_learning_rates(mcfg)))
 
-    observed = (cam, mcfg, rcfg, preprocess, render_flat, mapping_loss, l1_mapping, ssim,
+    observed = (cam, mcfg, rcfg, map_attr_table, render_flat, mapping_loss, l1_mapping, ssim,
                 adam_step)
     graph = window_graph(gm, frames, layouts, frame_ids, init_mode, observed, grads_fn, step_fn)
     graph.load(gm, frames, layouts, frame_ids)
@@ -351,10 +356,12 @@ def map_window(
             graph = layouts = _window_graph(gm, frames, layouts, frame_ids, cam, mcfg, rcfg,
                                             init_mode)
     state, losses = (gm if graph is None else graph.gm), []
+    prep_kernels = _build.launches["map_attr_bwd"]
     for k in frame_ids:
         with trace.span("map.iter"):
             state, loss = map_step(state, frames, k, layouts, cam, mcfg, rcfg, init_mode)
         losses.append(loss)
+    trace.count("map_prep_kernels", _build.launches["map_attr_bwd"] - prep_kernels)
     if graph is not None:
         return graph.result(gm, len(frame_ids))
     return state, torch.stack(losses)

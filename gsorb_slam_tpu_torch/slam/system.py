@@ -125,7 +125,8 @@ SPANS = (
     "fe.stereo_depth", "fe.stereo_orb", "fe.stereo_match",
 )
 COUNTERS = ("splats_added", "kf_bins_refreshed", "map_graph_captures", "map_graph_replays",
-            "stereo_keypoints", "stereo_matches", "track_graph_captures", "track_graph_replays")
+            "stereo_keypoints", "stereo_matches", "track_graph_captures", "track_graph_replays",
+            "map_prep_kernels")
 
 
 def _frame_span(method):

@@ -16,6 +16,7 @@ import torch
 from gsorb_slam_tpu_torch import _build
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.core.transforms import pose_to_matrix
+from gsorb_slam_tpu_torch.profiling.common import MAP_EDGE_KINDS, adjoint_edge_map
 from gsorb_slam_tpu_torch.raster import RasterConfig, bin_gaussians, preprocess, render
 from gsorb_slam_tpu_torch.raster.binning import TileBins, chunk_layout, tile_grid_shape
 from gsorb_slam_tpu_torch.raster.blend_kernels import (
@@ -51,6 +52,13 @@ from gsorb_slam_tpu_torch.raster.flat_kernels import (
     render_flat,
 )
 from gsorb_slam_tpu_torch.raster.instances import pack_raw_instances, rt_from_matrix, screen_rows
+from gsorb_slam_tpu_torch.raster.map_attr import (
+    map_attr_table,
+    map_attr_table_backward,
+    map_attr_table_backward_plain,
+    map_attr_table_forward,
+    map_attr_table_plain,
+)
 from gsorb_slam_tpu_torch.raster.paired import (
     pack_gt_pairs,
     pair_bins,
@@ -680,3 +688,63 @@ def test_knn3_window_on_the_card_matches_the_cpu(dev):
     assert torch.equal(knn.morton_codes(p, m).cpu(),
                        knn.morton_codes(torch.as_tensor(pts), torch.as_tensor(valid)))
     torch.testing.assert_close(knn.knn3_mean_sq_dist(p, m).cpu(), cpu, rtol=1e-6, atol=0)
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _maps(dev):
+    """The adjoint's edge map and a random map seen from a pose near the
+    identity."""
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    T = pose_to_matrix(f32([1.0, 0.01, -0.01, 0.005]), f32([0.02, -0.01, 0.0]))
+    return [adjoint_edge_map(8 * 2048, 0, CAM, device=dev), (*_scene(dev, 50000), T)]
+
+
+@pytest.mark.parametrize("scale_modifier", [1.0, 0.7])
+def test_k10f_equals_the_plain_composite_bit_for_bit(dev, scale_modifier):
+    """K10f's table and radii equal ``attr_cols(preprocess(...))`` and its
+    radii bit for bit, in one launch; a second launch gives the same bits."""
+    for m in _maps(dev):
+        n0 = _build.launches["map_attr_fwd"]
+        cols, radius = map_attr_table_forward(*m, CAM, scale_modifier)
+        assert _build.launches["map_attr_fwd"] == n0 + 1
+        want_cols, want_radius = map_attr_table_plain(*m, CAM, scale_modifier)
+        assert torch.equal(_bits(cols), _bits(want_cols))
+        assert torch.equal(_bits(radius), _bits(want_radius))
+        cols2, radius2 = map_attr_table_forward(*m, CAM, scale_modifier)
+        assert torch.equal(_bits(cols2), _bits(cols)) and torch.equal(_bits(radius2),
+                                                                      _bits(radius))
+
+
+@pytest.mark.parametrize("scale_modifier", [1.0, 0.7])
+def test_k10b_matches_the_plain_adjoint_and_autograd(dev, scale_modifier):
+    """K10b's gradients against the plain adjoint and against autograd
+    through the plain composite, each group within 1e-5 of its largest |g|
+    per row kind; through ``map_attr_table`` autograd reaches K10b itself
+    (one launch); two launches bitwise equal."""
+    m = adjoint_edge_map(8 * 2048, 1, CAM, device=dev)
+    g = torch.randn((m[0].shape[0] + 1, 16), generator=torch.Generator().manual_seed(2))
+    g = g.to(dev)
+    g[:, 10:] = 0.0
+    got = map_attr_table_backward(g, *m, CAM, scale_modifier)
+    plain = map_attr_table_backward_plain(g, *m, CAM, scale_modifier)
+    params = [p.clone().requires_grad_(True) for p in m[:5]]
+    cols, _ = map_attr_table_plain(*params, *m[5:], CAM, scale_modifier)
+    auto = torch.autograd.grad((cols * g).sum(), params)
+    kind = torch.arange(m[0].shape[0], device=dev) % len(MAP_EDGE_KINDS)
+    for want in (plain, auto):
+        for w, h in zip(want, got):
+            for k in range(len(MAP_EDGE_KINDS)):
+                rows = kind == k
+                err = float((h[rows] - w[rows]).abs().max())
+                assert err <= 1e-5 * float(w[rows].abs().max()), (MAP_EDGE_KINDS[k], err)
+
+    n0 = _build.launches["map_attr_bwd"]
+    cols_k, _ = map_attr_table(*params, *m[5:], CAM, scale_modifier)
+    via = torch.autograd.grad((cols_k * g).sum(), params)
+    assert _build.launches["map_attr_bwd"] == n0 + 1
+    again = map_attr_table_backward(g, *m, CAM, scale_modifier)
+    for a, b, c in zip(got, via, again):
+        assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c))
