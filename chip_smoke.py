@@ -34,7 +34,7 @@ Phases (any failed check makes the exit code non-zero):
    of the initial one, the tracked view must beat the initial pose's view
    by 6 dB PSNR against the gt, and every kernel of the path must have
    launched (K1 = K2f = K2b = 200, K3 >= 1);
-6. timings: ms per tracking iteration over 10 more frames (best and
+6. timings: ms per tracking iteration over 6 more frames (best and
    quartiles; each frame must reproduce the main path's pose bit for bit),
    a profiled frame (its device launches per iteration), and each kernel's
    time by CUDA events beside its plain version's and its bound (the work
@@ -53,7 +53,7 @@ Phases (any failed check makes the exit code non-zero):
    ``prefix_writeback``. K3 = 1 and K4 = K5 = 100 launches; finite
    outputs; the last 10 losses below the first 10; the window's mean PSNR
    up by at least 1 dB; a second run bitwise equal;
-9. timings: ms per mapping iteration over 5 more calls (each bitwise equal
+9. timings: ms per mapping iteration over 3 more calls (each bitwise equal
    to the main path's map), a profiled call, and K4 / K5 by CUDA events
    beside their plain versions and bounds;
 10. K7 (the exact-stop fused tracking iteration) against its plain version on
@@ -223,6 +223,14 @@ Phases (any failed check makes the exit code non-zero):
     where the reference has none fails), one launch each, two launches
     bitwise equal, their ms by CUDA events beside the plain versions' (the
     composite's forward, and its autograd backward) and their bounds; phase 8 also checks K10f = K10b = 100 launches.
+37. K11f / K11b (the mapping loss's SSIM and its adjoint) at the three
+    benchmark cells' frame sizes (640x480, 1200x680, 1241x376;
+    ``profiling.common.ssim_image_pair``, with and without its mask): K11f's value within 1e-5 of the plain
+    composite ``ssim_plain``, K11b's gradient within 2e-5 of the largest |g|
+    of autograd through it (a NaN or inf fails), one launch each, two
+    launches bitwise equal; their ms by CUDA events beside the composite's
+    (its forward, and its autograd backward) and their bounds; phase 8 also
+    checks K11f = K11b = 100 launches.
 Phase 18 also runs ``profile_frontend`` (6 frames at 320x240).
 It prints a ``kernels`` JSON line (each kernel's launches on its main path
 plus the stereo System's and phases 28-35's), the card's ``nvidia-smi``
@@ -250,8 +258,8 @@ import numpy as np
 # the screen rows whose cotangent moves the pose (u, v, conic 3, depth).
 POSE_RAW_ROWS = 10
 POSE_SCREEN_ROWS = (0, 1, 2, 3, 4, 9)
-FRAMES = 10
-MAP_CALLS = 5
+FRAMES = 6
+MAP_CALLS = 3
 MAP_ITERS = None  # None: MappingConfig's default (100)
 N_WINDOW = 4  # mapping window: the identity frame and 3 poses 2 cm / 2 deg away
 
@@ -671,7 +679,8 @@ def phase_mapping(torch, checks, gm, cam, rcfg, dev) -> dict:
     print(f"# mapping main path launches: {json.dumps(launches)}", flush=True)
     for name, want in (("blend_forward", 1), ("blend_flat_fwd", n_iters),
                        ("blend_flat_bwd", n_iters), ("map_attr_fwd", n_iters),
-                       ("map_attr_bwd", n_iters)):
+                       ("map_attr_bwd", n_iters), ("ssim_fwd", n_iters),
+                       ("ssim_bwd", n_iters)):
         checks.record(f"{name} launches == {want}", launches[name], want,
                       ok=launches[name] == want)
     print(f"# mapping step: {int(n_added)} splats added by densify (count {int(gm1.count)}), "
@@ -827,6 +836,88 @@ def phase_map_attr(torch, checks, dev) -> dict:
     return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain_ms=fwd_plain_ms,
                 bwd_plain_ms=bwd_plain_ms, bound_f=b_f, bound_b=b_b, fwd_err=fwd_err,
                 err=max(err_plain, err_auto))
+
+
+# Phase 37: the benchmark cells' frame sizes (H, W), and the f32 operations
+# K11f and K11b need per pixel and channel of the valid crop: the three
+# products, the 5 moments' vertical and horizontal 11-tap passes (2 each a
+# tap) and SSIM's terms and partials (~30); the 3 scaled partials' two
+# passes and the combination.
+SSIM_SIZES = ((480, 640), (680, 1200), (376, 1241))
+SSIM_FWD_OPS = 3 + 2 * 5 * 11 * 2 + 30
+SSIM_BWD_OPS = 3 + 2 * 3 * 11 * 2 + 4
+
+
+def phase_ssim(torch, checks, dev) -> dict:
+    """Phase 37: K11f / K11b against the plain composite at the cells'
+    sizes; returns each size's times, bounds and largest gaps."""
+    from gsorb_slam_tpu_torch import _build
+    from gsorb_slam_tpu_torch.ops.losses import ssim, ssim_plain
+    from gsorb_slam_tpu_torch.ops.ssim_kernel import ssim_backward, ssim_forward
+    from gsorb_slam_tpu_torch.profiling.common import bound_ms, ssim_image_pair
+
+    bits = lambda t: t.view(torch.int32)
+
+    def gap(got, want) -> float:
+        """The largest |got - want| of the largest |want|; a NaN or an inf
+        reads inf."""
+        d = torch.nan_to_num((got - want).abs(), nan=math.inf, posinf=math.inf)
+        return float(d.max()) / float(want.abs().max())
+
+    res = {}
+    for H, W in SSIM_SIZES:
+        errs = []
+        for masked in (False, True):
+            pred, target, mask = ssim_image_pair(H, W, H + W + masked, dev)
+            m = mask if masked else None
+            x = pred.clone().requires_grad_(True)
+            want = ssim_plain(x, target, m)
+            (want_g,) = torch.autograd.grad(want, x)
+            n0 = dict(_build.launches)
+            got = ssim(x, target, m)
+            (got_g,) = torch.autograd.grad(got, x)
+            again = ssim(x, target, m)
+            (again_g,) = torch.autograd.grad(again, x)
+            launched = {k: _build.launches[k] - n0[k] for k in ("ssim_fwd", "ssim_bwd")}
+            err_v = abs(float(got.detach()) - float(want.detach())) / abs(float(want.detach()))
+            err_g = gap(got_g, want_g)
+            errs.append((err_v, err_g))
+            tag = f"K11 at {W}x{H}{' masked' if masked else ''}"
+            checks.record(f"{tag}: value against the plain composite (relative)", err_v, 1e-5)
+            checks.record(f"{tag}: gradient against autograd (of the largest |g|)", err_g, 2e-5)
+            checks.record(f"{tag}: K11f / K11b two launches each", 0.0, 0.0,
+                          ok=launched == {"ssim_fwd": 2, "ssim_bwd": 2})
+            checks.record(f"{tag}: two launches bitwise equal", 0.0, 0.0,
+                          ok=torch.equal(bits(got.detach()), bits(again.detach()))
+                          and torch.equal(bits(got_g), bits(again_g)))
+            print(f"# {tag}: SSIM {float(got.detach()):.7f} (plain {float(want.detach()):.7f}, "
+                  f"{err_v:.3e}); gradient {err_g:.3e} of the largest |g| from autograd",
+                  flush=True)
+        # Times on the unmasked pair, as the mapping loss calls it.
+        pred, target, _ = ssim_image_pair(H, W, H + W, dev)
+        x = pred.clone().requires_grad_(True)
+        with torch.no_grad():
+            _, den, parts = ssim_forward(pred, target)
+            g1 = torch.ones((), device=dev)
+            fwd_ms = time_ms(torch, lambda: ssim_forward(pred, target), 50)
+            bwd_ms = time_ms(torch, lambda: ssim_backward(g1, pred, target, None, parts, den), 50)
+            fwd_plain_ms = time_ms(torch, lambda: ssim_plain(pred, target), 20)
+        with torch.enable_grad():
+            y = ssim_plain(x, target)
+        bwd_plain_ms = time_ms(torch, lambda: torch.autograd.grad(y, x, retain_graph=True), 20)
+        n_img, n_out = H * W * 3, (H - 10) * (W - 10) * 3
+        # K11f reads two images and writes three partial maps; K11b reads
+        # them and the two images and writes one image.
+        b_f = bound_ms(4 * (2 * n_img + 3 * n_out), n_out * SSIM_FWD_OPS)
+        b_b = bound_ms(4 * (3 * n_out + 3 * n_img), n_out * SSIM_BWD_OPS)
+        res[(H, W)] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain_ms=fwd_plain_ms,
+                           bwd_plain_ms=bwd_plain_ms, bound_f=b_f, bound_b=b_b,
+                           fwd_err=max(e[0] for e in errs), err=max(e[1] for e in errs))
+        print(f"# K11f ssim_fwd at {W}x{H}x3: {fwd_ms:.4f} ms (bound {b_f[0]:.4f} by {b_f[1]}; "
+              f"the plain composite's forward {fwd_plain_ms:.3f} ms); K11b ssim_bwd "
+              f"{bwd_ms:.4f} ms (bound {b_b[0]:.4f} by {b_b[1]}; autograd through the "
+              f"composite {bwd_plain_ms:.3f} ms)", flush=True)
+    return res
 
 
 def phase_system(torch, checks, dev) -> dict:
@@ -3044,6 +3135,9 @@ def main() -> int:
     # ---- 36. K10f / K10b against their plain versions at 2^20 rows ----
     k10 = phase_map_attr(torch, checks, dev)
 
+    # ---- 37. K11f / K11b against the plain composite at the cells' sizes ----
+    k11 = phase_ssim(torch, checks, dev)[(680, 1200)]
+
     # ---- 10. K7 against its plain version on phase 4's pack ----
     rcfg_e = dataclasses.replace(rcfg_t, exact_stop=True)
     with torch.no_grad():
@@ -3303,7 +3397,8 @@ def main() -> int:
                    "K3": "blend_forward", "K4": "blend_flat_fwd", "K5": "blend_flat_bwd",
                    "K6": "blend_backward", "K7": "fused_track_exact", "K8": "paired_track",
                    "K9": "fused_track_ablate", "K10f": "map_attr_fwd",
-                   "K10b": "map_attr_bwd"}[name.split()[0]]
+                   "K10b": "map_attr_bwd", "K11f": "ssim_fwd",
+                   "K11b": "ssim_bwd"}[name.split()[0]]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches_n + stereo["launches"][counter]
                 + tool_launches.get(counter, 0), "max_abs_err": err,
@@ -3350,14 +3445,22 @@ def main() -> int:
               "none (XLA's autodiff of gsorb_slam_tpu/raster/preprocess.py)",
               mp["launches"]["map_attr_bwd"], k10["err"], k10["bwd_ms"], k10["bwd_plain_ms"],
               *k10["bound_b"]),
+        entry("K11f ssim_fwd", "gsorb_slam_tpu_torch/csrc/ssim.cu",
+              "none (XLA's fusion of gsorb_slam_tpu/ops/losses.py ssim)",
+              mp["launches"]["ssim_fwd"], k11["fwd_err"], k11["fwd_ms"], k11["fwd_plain_ms"],
+              *k11["bound_f"]),
+        entry("K11b ssim_bwd", "gsorb_slam_tpu_torch/csrc/ssim.cu",
+              "none (XLA's autodiff of gsorb_slam_tpu/ops/losses.py ssim)",
+              mp["launches"]["ssim_bwd"], k11["err"], k11["bwd_ms"], k11["bwd_plain_ms"],
+              *k11["bound_b"]),
     ]
     for k in kernels:
         print(f"# {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "
               f"{k['bound_ms']:.4f} ms by {k['bound_by']}), {k['launches']} launches on its "
               f"main path, the stereo System's and phases 28-35's", flush=True)
     print("# library_ms: null for every kernel: no single PyTorch call computes a "
-          "depth-ordered alpha blend with its stop rules, its backward, or the EWA "
-          "projection's pose adjoint", flush=True)
+          "depth-ordered alpha blend with its stop rules, its backward, the EWA "
+          "projection's pose adjoint, or a mean SSIM and its adjoint", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     if checks.failed:

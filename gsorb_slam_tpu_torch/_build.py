@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = (
     "blend_backward.cu", "blend_flat.cu", "blend_forward.cu", "fused_track.cu",
-    "map_attr.cu", "preprocess_instances.cu",
+    "map_attr.cu", "preprocess_instances.cu", "ssim.cu",
 )
 HEADERS = ("common.cuh", "ewa.cuh")
 NVCC_FLAGS = (
@@ -55,6 +55,8 @@ launches: dict[str, int] = {
     "fused_track_ablate": 0,  # K9, every variant
     "map_attr_fwd": 0,  # K10f
     "map_attr_bwd": 0,  # K10b
+    "ssim_fwd": 0,  # K11f
+    "ssim_bwd": 0,  # K11b
 }
 
 _lock = threading.Lock()
@@ -87,6 +89,9 @@ _SIGNATURES = {
     "gsorb_preprocess_bwd_max_blocks": [],
     "gsorb_map_attr_fwd": [_P] * 9 + [_L] + [_F] * 9 + [_P],
     "gsorb_map_attr_bwd": [_P] * 12 + [_L] + [_F] * 9 + [_P],
+    "gsorb_ssim_fwd_blocks": [_I, _I],
+    "gsorb_ssim_fwd": [_P] * 9 + [_I] * 3 + [_F] * 2 + [_P],
+    "gsorb_ssim_bwd": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 
@@ -168,10 +173,10 @@ def pin_full_f32() -> None:
     """Pin float32 matmuls and convolutions on the card to full precision
     (TF32 keeps ~3 decimal digits, which the pose geometry cannot afford,
     and a TF32 keypoint angle moves BRIEF's steered offsets) and cuDNN to
-    its deterministic algorithms (the mapping loss's SSIM convolutions sit
-    on the differentiated path, and the mapped map must be reproducible).
-    Whatever reaches the card first calls it: the kernel library and the
-    ORB frontend."""
+    its deterministic algorithms (the evaluation's MS-SSIM and the plain
+    SSIM composite, ``ops.losses.ssim_plain``, run its convolutions; the
+    mapping loss's SSIM is K11). Whatever reaches the card first calls it:
+    the kernel library and the ORB frontend."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True

@@ -92,10 +92,36 @@ def ssim(
 ) -> torch.Tensor:
     """Mean SSIM over an ``[H, W, C]`` image with an 11x11 Gaussian window
     (``src/Utils.cc:81-120``), on the valid convolution output; ``mask``
-    (``[H, W]``) applies to the SSIM map after the same crop."""
-    if pred.ndim == 2:
-        pred = pred[..., None]
-        target = target[..., None]
+    (``[H, W]``) applies to the SSIM map after the same crop. Differentiable
+    w.r.t. ``pred`` only: a ``target`` that wants a gradient raises, as does
+    an image smaller than the window. CUDA tensors take the kernel pair K11f
+    / K11b (``ops/ssim_kernel.py``), CPU tensors :func:`ssim_plain`."""
+    if torch.is_grad_enabled() and target.requires_grad:
+        raise ValueError("ssim gives the target no gradient: pass a detached target")
+    if min(pred.shape[:2]) < window_size:
+        raise ValueError(f"ssim needs an image of at least {window_size}x{window_size}, got "
+                         f"{pred.shape[0]}x{pred.shape[1]}")
+    if pred.is_cuda:
+        # Imported here: ops/ssim_kernel.py imports this module's blur.
+        from gsorb_slam_tpu_torch.ops.ssim_kernel import ssim_kernel
+
+        return ssim_kernel(pred, target, mask, window_size, sigma, c1, c2)
+    return ssim_plain(pred, target, mask, window_size, sigma, c1, c2)
+
+
+def ssim_plain(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    mask: torch.Tensor | None = None,
+    window_size: int = 11,
+    sigma: float = 1.5,
+    c1: float = 0.01**2,
+    c2: float = 0.03**2,
+) -> torch.Tensor:
+    """:func:`ssim` as a composite of PyTorch operations on any device, the
+    five blurred moments through :func:`_depthwise_blur`: K11f's plain
+    version, differentiable under autograd."""
+    pred, target = _channels_last(pred, target)
     # The five blurred images in one batch.
     stack = torch.stack([pred, target, pred * pred, target * target, pred * target])
     mu_p, mu_t, mu_pp, mu_tt, mu_pt = _depthwise_blur(stack, window_size, sigma).unbind(0)
@@ -107,9 +133,23 @@ def ssim(
     )
     if mask is None:
         return ssim_map.mean()
-    half = window_size // 2
-    m = mask[half:-half, half:-half].to(ssim_map.dtype)[..., None].expand(ssim_map.shape)
+    m = _crop_weights(mask, ssim_map, window_size // 2)
     return (ssim_map * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def _channels_last(pred: torch.Tensor, target: torch.Tensor):
+    """``[H, W]`` images as ``[H, W, 1]``."""
+    if pred.ndim == 2:
+        return pred[..., None], target[..., None]
+    return pred, target
+
+
+def _crop_weights(mask: torch.Tensor | None, like: torch.Tensor, half: int) -> torch.Tensor:
+    """An ``[H, W]`` mask at the valid crop, broadcast over channels like
+    ``like`` (ones without a mask)."""
+    if mask is None:
+        return torch.ones_like(like)
+    return mask[half:-half, half:-half].to(like.dtype)[..., None].expand(like.shape)
 
 
 def mapping_image_loss(

@@ -186,6 +186,27 @@ def adjoint_edge_map(
             torch.as_tensor(kind != 1, device=device), to(T))
 
 
+def ssim_image_pair(
+    H: int, W: int, seed: int, device: torch.device | str = "cpu",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(pred, target, mask)`` for K11's checks: a smooth random colour
+    field ``[H, W, 3]`` in [0, 1] as the target, the prediction a noisy copy
+    of it that equals it on the first fifth of the rows, and an ``[H, W]``
+    mask with holes."""
+    rng = np.random.default_rng(seed)
+    coarse = torch.as_tensor(rng.uniform(size=(1, 3, H // 16 + 2, W // 16 + 2)),
+                             dtype=torch.float32)
+    target = torch.nn.functional.interpolate(coarse, size=(H, W), mode="bilinear",
+                                             align_corners=False)[0].permute(1, 2, 0)
+    target = target + torch.as_tensor(rng.normal(0, 0.02, (H, W, 3)), dtype=torch.float32)
+    pred = target + torch.as_tensor(rng.normal(0, 0.05, (H, W, 3)), dtype=torch.float32)
+    pred[: H // 5] = target[: H // 5]
+    mask = torch.as_tensor(rng.uniform(size=(H, W)) > 0.2)
+    mask[H // 3: H // 2, W // 4: W // 2] = False
+    to = lambda x: x.clamp(0, 1).contiguous().to(device)
+    return to(pred), to(target), mask.to(device)
+
+
 def bench_raster_config(**kw) -> RasterConfig:
     """The bench's raster view (bench.py, ``chip_smoke.py``): tile 16, render
     and mapping capacity 2048, tracking capacity 512, chunk 256, dilate 2 px,

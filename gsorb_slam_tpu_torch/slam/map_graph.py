@@ -7,7 +7,8 @@ each iteration (about 320 launches from Python) as two bodies of a
 
 - ``G_grad``: the loss on this iteration's window frame and its gradient
   w.r.t. the five splat parameter groups (K10f's attribute table, pack
-  gather, K4, the loss with SSIM, K5, the sorted segment sum, K10b);
+  gather, K4, the loss with SSIM's K11f, K11b, K5, the sorted segment sum,
+  K10b);
 - ``G_step``: the masked Adam step over the five groups, written in place
   into the map's fixed buffers.
 

@@ -28,8 +28,9 @@ Spans (``utils/trace.py``): ``map.layouts`` for the layouts of a
 :func:`map_window` call (and loading its graph), ``map.iter`` for each of
 its iterations; the layouts' host reads are waits of the open layer.
 Counters: ``map_graph_captures`` (captures of the two graphs),
-``map_graph_replays`` (iterations replayed) and ``map_prep_kernels`` (K10b
-launches, replayed or eager: one an iteration on the card).
+``map_graph_replays`` (iterations replayed), ``map_prep_kernels`` (K10b
+launches) and ``map_ssim_kernels`` (K11b launches, the loss's SSIM
+adjoint), each replayed or eager: one an iteration on the card.
 """
 
 from __future__ import annotations
@@ -188,7 +189,7 @@ def mapping_loss(
     variant of ``InitWorld``, ``:537-541``, with ``init_mode``)."""
     valid = gt_depth > 0
     image_loss = mcfg.lam * l1_mapping(out.color, gt_color)
-    if mcfg.lam != 1.0:  # lam = 1, the L1-only loss, skips SSIM's convolutions
+    if mcfg.lam != 1.0:  # lam = 1, the L1-only loss, skips SSIM (K11f / K11b)
         image_loss = image_loss + (1.0 - mcfg.lam) * (1.0 - ssim(out.color, gt_color))
     depth_loss = l1_mapping(out.depth, gt_depth, valid)
     if init_mode:
@@ -332,6 +333,10 @@ def _window_graph(gm, frames, layouts, frame_ids, cam, mcfg, rcfg, init_mode) ->
     return graph
 
 
+# map_window's kernel counters: each counts its kernel's launches.
+_KERNEL_COUNTERS = {"map_prep_kernels": "map_attr_bwd", "map_ssim_kernels": "ssim_bwd"}
+
+
 def map_window(
     gm: GaussianMap,
     frames: WindowFrames,
@@ -356,12 +361,13 @@ def map_window(
             graph = layouts = _window_graph(gm, frames, layouts, frame_ids, cam, mcfg, rcfg,
                                             init_mode)
     state, losses = (gm if graph is None else graph.gm), []
-    prep_kernels = _build.launches["map_attr_bwd"]
+    before = {c: _build.launches[k] for c, k in _KERNEL_COUNTERS.items()}
     for k in frame_ids:
         with trace.span("map.iter"):
             state, loss = map_step(state, frames, k, layouts, cam, mcfg, rcfg, init_mode)
         losses.append(loss)
-    trace.count("map_prep_kernels", _build.launches["map_attr_bwd"] - prep_kernels)
+    for c, k in _KERNEL_COUNTERS.items():
+        trace.count(c, _build.launches[k] - before[c])
     if graph is not None:
         return graph.result(gm, len(frame_ids))
     return state, torch.stack(losses)

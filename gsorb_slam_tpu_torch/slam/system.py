@@ -126,7 +126,7 @@ SPANS = (
 )
 COUNTERS = ("splats_added", "kf_bins_refreshed", "map_graph_captures", "map_graph_replays",
             "stereo_keypoints", "stereo_matches", "track_graph_captures", "track_graph_replays",
-            "map_prep_kernels")
+            "map_prep_kernels", "map_ssim_kernels")
 
 
 def _frame_span(method):

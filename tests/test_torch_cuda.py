@@ -16,7 +16,12 @@ import torch
 from gsorb_slam_tpu_torch import _build
 from gsorb_slam_tpu_torch.core.camera import Camera
 from gsorb_slam_tpu_torch.core.transforms import pose_to_matrix
-from gsorb_slam_tpu_torch.profiling.common import MAP_EDGE_KINDS, adjoint_edge_map
+from gsorb_slam_tpu_torch.ops import losses
+from gsorb_slam_tpu_torch.profiling.common import (
+    MAP_EDGE_KINDS,
+    adjoint_edge_map,
+    ssim_image_pair,
+)
 from gsorb_slam_tpu_torch.raster import RasterConfig, bin_gaussians, preprocess, render
 from gsorb_slam_tpu_torch.raster.binning import TileBins, chunk_layout, tile_grid_shape
 from gsorb_slam_tpu_torch.raster.blend_kernels import (
@@ -748,3 +753,67 @@ def test_k10b_matches_the_plain_adjoint_and_autograd(dev, scale_modifier):
     again = map_attr_table_backward(g, *m, CAM, scale_modifier)
     for a, b, c in zip(got, via, again):
         assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c))
+
+
+# The three cells' frame sizes (1241 = 77 x 16 + 9: a partial tile).
+SSIM_SIZES = [(480, 640), (680, 1200), (376, 1241)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("H,W", SSIM_SIZES)
+def test_k11_matches_the_plain_composite(dev, H, W, masked):
+    """K11f's value within 1e-5 of the plain composite, K11b's gradient
+    within 2e-5 of autograd's through it (of the largest |g|), one launch
+    each; no gradient wanted: K11f alone."""
+    _build.library()  # pins full f32 for the composite's convolutions
+    pred, target, mask = ssim_image_pair(H, W, H + W + masked, dev)
+    m = mask if masked else None
+    x = pred.clone().requires_grad_(True)
+    want = losses.ssim_plain(x, target, m)
+    (want_g,) = torch.autograd.grad(want, x)
+    n0 = dict(_build.launches)
+    got = losses.ssim(x, target, m)
+    (got_g,) = torch.autograd.grad(got, x)
+    assert (_build.launches["ssim_fwd"] - n0["ssim_fwd"],
+            _build.launches["ssim_bwd"] - n0["ssim_bwd"]) == (1, 1)
+    assert abs(float(got.detach()) - float(want.detach())) <= 1e-5 * abs(float(want.detach()))
+    assert bool(torch.isfinite(got_g).all())
+    assert float((got_g - want_g).abs().max()) <= 2e-5 * float(want_g.abs().max())
+    with torch.no_grad():
+        alone = losses.ssim(pred, target, m)
+    assert _build.launches["ssim_fwd"] - n0["ssim_fwd"] == 2
+    assert _build.launches["ssim_bwd"] - n0["ssim_bwd"] == 1
+    assert torch.equal(_bits(alone), _bits(got.detach()))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_k11_reruns_bit_for_bit_and_replays_as_a_graph(dev, masked):
+    """Two runs of K11f / K11b give the same bits; a CUDA graph of the value
+    and its gradient, replayed on new inputs, equals the eager call."""
+    H, W = SSIM_SIZES[2]
+    pred, target, mask = ssim_image_pair(H, W, 7, dev)
+    m = mask if masked else None
+    x = pred.clone().requires_grad_(True)
+
+    def body():
+        v = losses.ssim(x, target, m)
+        return v.detach(), torch.autograd.grad(v, x)[0]
+
+    first, second = body(), body()
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(first, second))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = body()
+    for seed in (8, 9):
+        new_pred, _, _ = ssim_image_pair(H, W, seed, dev)
+        with torch.no_grad():
+            x.copy_(new_pred)
+        graph.replay()
+        eager = body()
+        torch.cuda.synchronize()
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(static, eager))

@@ -32,7 +32,7 @@ RCFG = RasterConfig(tile=16, tile_capacity=512, max_dup=16, chunk=128, dilate_px
                     exact_stop=False)
 MCFG = MappingConfig()
 DRAWS = [0, 2, 1, 1, 0, 2, 2, 0, 1, 0, 2, 1]
-COUNTERS = ("map_graph_captures", "map_graph_replays", "map_prep_kernels")
+COUNTERS = ("map_graph_captures", "map_graph_replays", "map_prep_kernels", "map_ssim_kernels")
 
 
 @pytest.fixture
@@ -109,7 +109,7 @@ def test_map_window_graph_matches_eager_loop(dev):
     (one eager iteration, the capture, 11 replays), a second call on the
     same shapes (12 replays), a call with another chunk budget (a new
     capture) and an ``init_mode`` call (its own graph). Counters and K4 /
-    K5 / K10f / K10b launches count each iteration once."""
+    K5 / K10f / K10b / K11f / K11b launches count each iteration once."""
     gm, frames = _window(dev)
     budget = M.window_chunk_budget(frames.bins_counts, RCFG.chunk)
     tracer = trace.Tracer(counters=COUNTERS)
@@ -125,11 +125,14 @@ def test_map_window_graph_matches_eager_loop(dev):
             assert _build.launches["blend_flat_bwd"] == len(DRAWS)
             assert _build.launches["map_attr_fwd"] == len(DRAWS)
             assert _build.launches["map_attr_bwd"] == len(DRAWS)
+            assert _build.launches["ssim_fwd"] == len(DRAWS)
+            assert _build.launches["ssim_bwd"] == len(DRAWS)
             _assert_same_bits(got_gm, want_gm, got_losses, want_losses)
             assert int(got_gm.adam_t) == len(DRAWS)
             assert tracer.totals["map_graph_captures"] == captures
             assert tracer.totals["map_graph_replays"] == replays
             assert tracer.totals["map_prep_kernels"] == replays + captures
+            assert tracer.totals["map_ssim_kernels"] == replays + captures
     assert sorted((o, f) for o, _, f in CG._GRAPHS) == [("map", False), ("map", True)]
 
 
